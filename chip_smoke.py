@@ -8,12 +8,18 @@ It needs one CUDA device and exits non-zero without one.  Phases, in
 order; any failure raises and exits non-zero:
 
 1. environment: the card's name and power limit, ``env_stamp()``;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc/`` (one
+2. build: every CUDA kernel in ``src/repro_torch/kernels/csrc/`` (one
    ``nvcc`` each, in parallel, into ``build/kernels/``);
-3. each kernel against its plain PyTorch version on the card, on a grid of
-   formats, LIFO depths, stop points and directions (integer outputs,
-   tolerance 0: equal exactly), plus the useful-DR cross-check between
-   the two kernels;
+3. each kernel against its plain PyTorch version on the card: the fused
+   TNS and digit-read kernels on a grid of formats, LIFO depths, stop
+   points and directions, plus the useful-DR cross-check between the two;
+   key pack / unpack on float32, bfloat16 and int32 with +-0, +-inf and
+   NaN; radix top-k over N in {1, 60, 160, 1024}, k in {1, 6, 32}, r in
+   {1, 3, 4, 8} with an all-ties row, and over rows wider than the
+   registers hold, N in {16385, 50304, 70000}, k in {1, 6, 50} (integer
+   outputs: equal exactly);
+   the pruned matmul in float32 and bfloat16 at a ragged shape and with an
+   all-false mask (tolerance: see ``mm_tolerance``);
 4. the port's paths at full size, each driven with the launch counts set
    to 0 just before and read just after:
    a. ``sort(x, engine="fused-tns", k=2)`` on float16 (4096, 1024) —
@@ -24,14 +30,31 @@ order; any failure raises and exits non-zero:
       keys need 64 KiB of shared memory per block;
    c. the useful-DR check path: ``min_search`` over the (4096, 16, 1024)
       planes against the fused kernel's one-episode mixed-read count;
+   d. the MoE router: ``topk(logits, 6, engine="fused-topk")`` on float32
+      (16384, 160) (deepseek-v2: 160 routed experts, top-6, 16384
+      tokens) and top-4 of bfloat16 (16384, 60) (qwen2-moe), indices held
+      to the plain version, values to ``torch.topk``'s, and the packed
+      keys of both inputs to the plain version (unpacked: bit for bit);
+   e. ``sort(x, engine="fused-topk", stop_after=32)`` on float32
+      (4096, 1024), held to a stable argsort of the sort keys;
+   f. ``sort(x, engine="radix")`` on the same x (plain torch, no kernel);
+   g. ``pruned_matmul`` at olmo-1b's MLP (bfloat16 x (4096, 2048), w
+      (2048, 8192)), the 30 % of input lanes with the smallest max |w|
+      dropped by ``prune_mask``;
+   h. ``topk_mask(logits, 50)`` over olmo-1b's vocabulary, (64, 50304)
+      (plain torch);
 5. times (CUDA events after warm-up) beside the least time the card could
-   take (bytes over 3.35 TB/s, integer operations over 67 T/s, the larger
-   of the two), the plain version's time and ``torch.sort``'s;
+   take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
+   tensor-core operations over 989 T/s, the larger), the plain version's
+   time and one PyTorch call computing the same function where there is
+   one; a breakdown of the ``topk()`` call; the top-k kernel on
+   vocabulary-wide rows (64, 50304), keys staged in shared memory;
 6. one JSON line describing each kernel, then the device line last.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -43,6 +66,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 ALU_OPS_PER_S = 67e12          # H100 SXM peak outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bfloat16 tensor cores
+# SM cycles the card sleeps per timed call while the host queues the calls
+# (about 0.2 ms at the H100's clock)
+SLEEP_CYCLES_PER_CALL = 400_000
 # integer operations the episode algorithm needs per alive lane and
 # episode: path depth (xor, and, bit length), resume test, masked key
 # (xor, and), min, winner test, winner count, divergence (xor, bit
@@ -51,6 +78,13 @@ ALU_OPS_PER_S = 67e12          # H100 SXM peak outside the tensor cores
 FUSED_OPS_PER_LANE_EPISODE = 15
 # per lane and column: compare, then OR into the hit and keep flags
 DR_OPS_PER_LANE_COLUMN = 3
+# integer operations the top-k min-search needs per searched lane and
+# digit step: digit (shift, and), presence (shift, or), exclusion
+# (compare, clear)
+TOPK_OPS_PER_LANE_DIGIT = 6
+# olmo-1b (src/repro/configs/olmo_1b.py): MLP widths and vocabulary
+OLMO_D_MODEL, OLMO_D_FF, OLMO_VOCAB = 2048, 8192, 50304
+PRUNE_RATE = 0.3               # share of MLP input lanes pruned in situ
 FORMATS = {"unsigned": 8, "twos": 8, "signmag": 16, "float": 16}
 
 
@@ -69,6 +103,41 @@ def gen(fmt: str, rng, shape):
     return rng.standard_normal(shape).astype("float16")
 
 
+def mm_tolerance(x, w, keep, exact):
+    """Elementwise bound on |result - exact| for ``(x * keep) @ w`` summed
+    in float32 and rounded to x's dtype, ``exact`` being the float64
+    product.  The products of float32 or bfloat16 inputs are exact or
+    rounded once; each of the K float32 additions may lose one float32 ulp
+    (2^-23: the tensor cores' adder need not round to nearest), hence
+    acc = K * 2^-23 * (|x * keep| @ |w|); the final rounding to the
+    output type adds at most u * (|exact| + acc), u = 2^-24 for float32
+    and 2^-8 for bfloat16."""
+    xm = (x.double() * keep.double()).abs()
+    acc = x.shape[1] * 2.0 ** -23 * (xm @ w.double().abs())
+    unit = 2.0 ** -8 if x.dtype.itemsize == 2 else 2.0 ** -24
+    return acc * (1 + unit) + unit * exact.abs()
+
+
+def searched_lane_digits(keys, k: int, r: int) -> int:
+    """Lanes still in the search, summed over every digit step of the k
+    rounds of the top-k min-search on (B, N) int32 key bits: the work this
+    data needs (a lane that has left a round's search is not visited)."""
+    import torch
+    lane = torch.arange(keys.shape[1], device=keys.device)
+    valid = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    total = 0
+    for _ in range(k):
+        m = valid
+        for shift in range(32 - r, -1, -r):
+            total += int(m.sum())
+            dig = (keys >> shift) & ((1 << r) - 1)
+            dmin = dig.masked_fill(~m, 1 << r).amin(dim=-1)
+            m = m & (dig == dmin[:, None])
+        chosen = m.to(torch.uint8).argmax(dim=-1)
+        valid = valid & (lane != chosen[:, None])
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -76,14 +145,33 @@ def main() -> int:
         return 2
 
     import numpy as np
+    from repro_torch import sort as tsort
     from repro_torch.core import bitplane as bp
+    from repro_torch.core import radix_select as rs
     from repro_torch.core import ref_tns
-    from repro_torch.kernels import _build, backend, digit_read, fused_tns
-    from repro_torch.kernels.ref import min_search_ref
+    from repro_torch.kernels import (_build, backend, bitplane_pack,
+                                     digit_read, fused_tns, masked_matmul,
+                                     ops, radix_topk)
+    from repro_torch.kernels.ref import (min_search_ref, pack_keys_ref,
+                                         pruned_matmul_ref, topk_keys_ref,
+                                         unpack_keys_f32_ref)
     from repro_torch.sort import sort
 
+    # the plain versions' float32 products stay float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    err = {"fused_tns": 0, "digit_read": 0}
+    mods = {"fused_tns": fused_tns, "digit_read": digit_read,
+            "bitplane_pack": bitplane_pack, "radix_topk": radix_topk,
+            "masked_matmul": masked_matmul}
+    err = {name: 0 for name in mods}
+
+    def zero_counts():
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+
+    def counts():
+        return {name: mod.LAUNCHES for name, mod in mods.items()}
 
     def same(name, got, want, what):
         got, want = got.to(torch.int64), want.to(torch.int64)
@@ -118,17 +206,45 @@ def main() -> int:
              fused_tns.rank_to_perm(want[0]), f"{what} perm")
         return got, plain_s
 
+    def mm_pair(x, w, keep, what):
+        """Kernel, plain version and the float64 product on one input; both
+        within ``mm_tolerance`` of the float64 product."""
+        got = masked_matmul.pruned_matmul(x, w, keep)
+        want = pruned_matmul_ref(x, w, keep)
+        exact = (x.double() * keep.double()) @ w.double()
+        tol = mm_tolerance(x, w, keep, exact)
+        for name, y in (("kernel", got), ("plain version", want)):
+            over = ((y.double() - exact).abs() - tol).max().item()
+            expect(over <= 0, f"pruned_matmul {what}: {name} exceeds the "
+                   f"tolerance by {over}")
+        diff = (got.float() - want.float()).abs().max().item()
+        err["masked_matmul"] = max(err["masked_matmul"], diff)
+        return got
+
     def cuda_ms(fn, reps):
+        """Device time of one call of ``fn``: CUDA events around ``reps``
+        calls queued behind a sleep kernel, so that the host's cost of
+        issuing a call (tens of microseconds through ctypes) does not pace
+        the card; a call that issues more than the sleep covers is paced
+        by the host all the same."""
         fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
         start.record()
         for _ in range(reps):
             fn()
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
+
+    def rotating(t):
+        """A function giving the next of enough copies of ``t`` to pass
+        100 MB, twice the L2 cache: a timed call then reads its input from
+        device memory, not from the L2 that the previous call left warm."""
+        n = max(2, -(-100_000_000 // (t.numel() * t.element_size())))
+        return itertools.cycle([t.clone() for _ in range(n)]).__next__
 
     # ---- 1. environment
     smi = subprocess.run(
@@ -141,7 +257,7 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    _build.build(["fused_tns", "digit_read"])
+    _build.build(_build.kernel_names())
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in sorted(_build.build_logs.items()):
         print(f"ptxas {name}:", " | ".join(
@@ -185,15 +301,78 @@ def main() -> int:
            "fused useful DRs at stop_after=1 != min_search's")
     print("digit_read == plain; fused useful DRs == min_search's", flush=True)
 
+    t0 = time.perf_counter()
+    special = torch.tensor([float("-inf"), -3.5, -0.0, 0.0, 1e-9, 7.25,
+                            float("inf"), float("nan"), -float("nan")])
+    vals = torch.cat([special, torch.from_numpy(
+        rng.standard_normal(4099).astype(np.float32) * 1e3)]).to(dev)
+    ints = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 4108,
+                                         dtype=np.int32)).to(dev)
+    for x in (vals, vals.to(torch.bfloat16), ints):
+        for part, what in ((x, ""), (x[1:], " unaligned")):
+            same("bitplane_pack", bitplane_pack.pack_keys(part),
+                 pack_keys_ref(part), f"pack {x.dtype}{what}")
+    fkeys = bitplane_pack.pack_keys(vals)
+    back = bitplane_pack.unpack_keys_f32(fkeys)
+    same("bitplane_pack", back.view(torch.int32),
+         unpack_keys_f32_ref(fkeys).view(torch.int32), "unpack")
+    same("bitplane_pack", back.view(torch.int32), vals.view(torch.int32),
+         "unpack(pack(x)) bits")
+    print("pack / unpack == plain (float32, bfloat16, int32; +-0, +-inf, "
+          "NaN; aligned and not)", flush=True)
+
+    cells = 0
+    for n in (1, 60, 160, 1024):
+        keys = bp.keys_from_numpy(rng.integers(0, 2**32, (64, n),
+                                               dtype=np.uint32), device=dev)
+        keys[1] = 5                            # an all-ties row
+        keys[2] = keys[2] % 7                  # many ties
+        for k in (1, 6, 32):
+            if k > n:
+                continue
+            for r in (1, 3, 4, 8):
+                got = radix_topk.topk_keys(keys, k, r)
+                want = topk_keys_ref(keys, k, r)
+                same("radix_topk", got[0], want[0], f"N={n} k={k} r={r} keys")
+                same("radix_topk", got[1], want[1], f"N={n} k={k} r={r} idx")
+                cells += 1
+    # rows past the registers: keys staged in shared memory (16385, the
+    # vocabulary's 50304), then read from global memory (70000)
+    for n in (16385, OLMO_VOCAB, 70000):
+        keys = bp.keys_from_numpy(rng.integers(0, 2**32, (4, n),
+                                               dtype=np.uint32), device=dev)
+        keys[1] = 5
+        keys[2] = keys[2] % 7
+        for k in (1, 6, 50):
+            for r in (1, 3, 4, 8):
+                got = radix_topk.topk_keys(keys, k, r)
+                want = topk_keys_ref(keys, k, r)
+                same("radix_topk", got[0], want[0], f"N={n} k={k} r={r} keys")
+                same("radix_topk", got[1], want[1], f"N={n} k={k} r={r} idx")
+                cells += 1
+    print(f"radix_topk == plain on {cells} cells "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    tgen = torch.Generator(device=dev).manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(130, 257, generator=tgen, device=dev).to(dt)
+        w = torch.randn(257, 120, generator=tgen, device=dev).to(dt)
+        keep = torch.rand(257, generator=tgen, device=dev) > 0.3
+        mm_pair(x, w, keep, f"{dt} (130, 257, 120)")
+        none = mm_pair(x, w, torch.zeros_like(keep), f"{dt} all pruned")
+        expect(not none.abs().max().item(), "all-false mask: output != 0")
+    print(f"pruned_matmul within tolerance of the float64 product, as is "
+          f"the plain version (float32, bfloat16; ragged; all pruned); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 4a. main path: sort() at full size
     x = np.random.default_rng(0).standard_normal((4096, 1024)).astype(
         np.float16)
-    fused_tns.LAUNCHES = digit_read.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = sort(x, engine="fused-tns", k=2)
     sort_s = time.perf_counter() - t0
-    launches = {"fused_tns": fused_tns.LAUNCHES,
-                "digit_read": digit_read.LAUNCHES}
+    launches = counts()
     print(f"sort(fused-tns) (4096, 1024) float16: launches {launches}, "
           f"{sort_s:.3f} s", flush=True)
     expect(launches["fused_tns"] > 0, "sort() did not launch fused_tns")
@@ -226,7 +405,7 @@ def main() -> int:
     # ---- 4b. large-bank top-m
     xb = np.random.default_rng(1).standard_normal((512, 16384)).astype(
         np.float16)
-    fused_tns.LAUNCHES = digit_read.LAUNCHES = 0
+    zero_counts()
     resb = sort(xb, engine="fused-tns", k=2, stop_after=64)
     expect(fused_tns.LAUNCHES > 0, "top-m sort() did not launch fused_tns")
     keysb = bp.sort_key(xb, 16, "float")
@@ -243,12 +422,11 @@ def main() -> int:
           "kernel == plain", flush=True)
 
     # ---- 4c. useful-DR check path at full size
-    fused_tns.LAUNCHES = digit_read.LAUNCHES = 0
+    zero_counts()
     mask, dr_full = digit_read.min_search(planes)
     one_ep = fused_tns.fused_tns_planes(planes, None, k=2, fmt="unsigned",
                                         stop_after=1)
-    dr_launches = {"fused_tns": fused_tns.LAUNCHES,
-                   "digit_read": digit_read.LAUNCHES}
+    dr_launches = counts()
     expect(dr_launches["digit_read"] > 0, "check path did not launch "
            "digit_read")
     expect(torch.equal(one_ep.useful_drs, dr_full),
@@ -258,6 +436,104 @@ def main() -> int:
     same("digit_read", dr_full, rdrs, "full size useful DRs")
     print(f"check path (4096, 16, 1024): launches {dr_launches}; "
           "min_search == plain == fused one-episode count", flush=True)
+
+    # ---- 4d. the MoE router: topk() through the pack and top-k kernels
+    logits = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (16384, 160)).astype(np.float32)).to(dev)
+    logits_q = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (16384, 60)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    zero_counts()
+    routed = [(lg, kk) + tuple(tsort.topk(lg, kk, engine="fused-topk"))
+              for lg, kk in ((logits, 6), (logits_q, 4))]
+    torch.cuda.synchronize()
+    topk_launches = counts()
+    print(f"topk(fused-topk) router (16384, 160) f32 top-6 and (16384, 60) "
+          f"bf16 top-4: launches {topk_launches}", flush=True)
+    expect(topk_launches["bitplane_pack"] > 0, "topk() did not launch the "
+           "pack kernel")
+    expect(topk_launches["radix_topk"] > 0, "topk() did not launch "
+           "radix_topk")
+    for lg, kk, v, i in routed:
+        _, want_i = topk_keys_ref(~pack_keys_ref(lg), kk)
+        same("radix_topk", i, want_i, f"router {tuple(lg.shape)} indices")
+        expect(torch.equal(v, torch.topk(lg, kk).values),
+               f"router {tuple(lg.shape)}: values != torch.topk's")
+        expect(torch.equal(v, torch.gather(lg, 1, i.long())),
+               "router values != x[indices]")
+        packed = bitplane_pack.pack_keys(lg)
+        same("bitplane_pack", packed, pack_keys_ref(lg),
+             f"router {tuple(lg.shape)} keys")
+        same("bitplane_pack",
+             bitplane_pack.unpack_keys_f32(packed).view(torch.int32),
+             lg.float().view(torch.int32),
+             f"router {tuple(lg.shape)} unpack(pack(x)) bits")
+    print("router indices == plain version; values == torch.topk's; "
+          "packed keys == plain version, unpack(pack(x)) == x bit for bit",
+          flush=True)
+
+    # ---- 4e/4f. 32-bit sorts: fused-topk top-32 and the radix engine
+    xs = np.random.default_rng(4).standard_normal((4096, 1024)).astype(
+        np.float32)
+    order = np.argsort(bp.sort_key(xs, 32, "float"), axis=1, kind="stable")
+    zero_counts()
+    t0 = time.perf_counter()
+    res_e = sort(xs, engine="fused-topk", stop_after=32)
+    top32_s = time.perf_counter() - t0
+    top32_launches = counts()
+    expect(top32_launches["radix_topk"] > 0, "sort(fused-topk) did not "
+           "launch radix_topk")
+    expect(np.array_equal(res_e.indices, order[:, :32])
+           and np.array_equal(res_e.values, np.take_along_axis(
+               xs, order[:, :32], axis=1)), "fused-topk top-32 != stable "
+           "argsort of the sort keys")
+    print(f"sort(fused-topk, stop_after=32) (4096, 1024) f32: launches "
+          f"{top32_launches}, {top32_s:.3f} s; == stable argsort",
+          flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res_f = sort(xs, engine="radix")
+    radix_s = time.perf_counter() - t0
+    expect(np.array_equal(res_f.indices, order),
+           "radix sort != stable argsort of the sort keys")
+    print(f"sort(radix) (4096, 1024) f32 full sort: launches {counts()} "
+          f"(plain torch), {radix_s:.3f} s; == stable argsort", flush=True)
+
+    # ---- 4g. in-situ pruned MLP product at olmo-1b's widths
+    tgen = torch.Generator(device=dev).manual_seed(5)
+    xg = torch.randn(4096, OLMO_D_MODEL, generator=tgen, device=dev).to(
+        torch.bfloat16)
+    wg = torch.randn(OLMO_D_MODEL, OLMO_D_FF, generator=tgen, device=dev).to(
+        torch.bfloat16)
+    n_prune = round(PRUNE_RATE * OLMO_D_MODEL)
+    zero_counts()
+    # each input lane scored by its largest |weight| (pruning/insitu.py)
+    keep_g = ~tsort.prune_mask(wg.float().abs().amax(dim=-1)[None],
+                               n_prune)[0]
+    yg = ops.pruned_matmul(xg, wg, keep_g)
+    torch.cuda.synchronize()
+    mm_launches = counts()
+    expect(mm_launches["masked_matmul"] > 0, "pruned_matmul did not launch "
+           "its kernel")
+    expect(int(keep_g.sum()) == OLMO_D_MODEL - n_prune, "keep mask size")
+    yk = mm_pair(xg, wg, keep_g, "olmo-1b MLP")
+    expect(torch.equal(yg, yk), "pruned_matmul not deterministic")
+    print(f"pruned_matmul (4096, 2048) @ (2048, 8192) bf16, {n_prune} lanes "
+          f"pruned: launches {mm_launches}; kernel and plain within "
+          f"tolerance; max |kernel - plain| {err['masked_matmul']}",
+          flush=True)
+
+    # ---- 4h. top-k sampling mask over olmo-1b's vocabulary (plain torch)
+    vocab = torch.randn(64, OLMO_VOCAB, generator=tgen, device=dev)
+    zero_counts()
+    vmask = tsort.topk_mask(vocab, 50)
+    vkeys, _ = bp.sort_key_t(vocab)
+    wide = vkeys.long() & 0xFFFFFFFF
+    expect(bool((vmask.sum(dim=-1) == 50).all()), "topk_mask: not 50 a row")
+    expect(bool((wide.masked_fill(~vmask, 1 << 32).amin(dim=-1)
+                 >= wide.masked_fill(vmask, -1).amax(dim=-1)).all()),
+           "topk_mask: a selected key below an unselected one")
+    print(f"topk_mask (64, 50304) k=50: launches {counts()} (plain torch); "
+          "50 a row, every selected key >= every unselected", flush=True)
 
     # ---- 5. times
     B, W, N = planes.shape
@@ -320,6 +596,136 @@ def main() -> int:
           f"{db[0]:.4f} ms by {db[1]}; plain {dr_plain_ms:.3f} ms",
           flush=True)
 
+    # key pack at the router's shape (inputs cold in L2), and on 256 MiB
+    # for its bandwidth
+    nxt = rotating(logits)
+    pack_ms = cuda_ms(lambda: bitplane_pack.pack_keys(nxt()), 50)
+    pack_plain_ms = cuda_ms(lambda: pack_keys_ref(nxt()), 20)
+    pb = bound(8 * logits.numel(), 0)
+    nxt_q = rotating(logits_q)
+    pack_q_ms = cuda_ms(lambda: bitplane_pack.pack_keys(nxt_q()), 50)
+    del nxt, nxt_q
+    big = torch.randn(64 << 20, generator=tgen, device=dev)
+    same("bitplane_pack", bitplane_pack.pack_keys(big), pack_keys_ref(big),
+         "256 MiB keys")
+    big_ms = cuda_ms(lambda: bitplane_pack.pack_keys(big), 20)
+    big_rate = 8 * big.numel() / (big_ms * 1e-3)
+    del big
+    print(f"[{card}] pack_keys (16384, 160) f32: {pack_ms:.4f} ms; bound "
+          f"{pb[0]:.4f} ms by {pb[1]}; plain {pack_plain_ms:.4f} ms; "
+          f"(16384, 60) bf16: {pack_q_ms:.4f} ms; 256 MiB f32: "
+          f"{big_ms:.4f} ms = {big_rate / 1e12:.3f} TB/s, "
+          f"{big_rate / HBM_BYTES_PER_S:.3f} of 3.35 TB/s", flush=True)
+
+    # radix top-k at the router's shape (inputs cold in L2)
+    inv = ~bitplane_pack.pack_keys(logits)
+    nxt = rotating(inv)
+    topk_ms = cuda_ms(lambda: radix_topk.topk_keys(nxt(), 6), 20)
+    topk_plain_ms = cuda_ms(lambda: topk_keys_ref(nxt(), 6), 3)
+    nxt_wide = rotating(inv.long() & 0xFFFFFFFF)
+    topk_lib_ms = cuda_ms(lambda: torch.topk(nxt_wide(), 6, largest=False),
+                          20)
+    # the same order in int32: unsigned keys with the sign bit flipped
+    nxt_signed = rotating(inv ^ -(1 << 31))
+    topk_i32_ms = cuda_ms(lambda: torch.topk(nxt_signed(), 6,
+                                             largest=False), 20)
+    del nxt, nxt_wide, nxt_signed
+    lane_digits = searched_lane_digits(inv, 6, 4)
+    kb = bound(4 * inv.numel() + 8 * inv.shape[0] * 6,
+               lane_digits * TOPK_OPS_PER_LANE_DIGIT)
+    skeys = bp.keys_from_numpy(bp.sort_key(xs, 32, "float"), device=dev)
+    top32_ms = cuda_ms(lambda: radix_topk.topk_keys(skeys, 32), 5)
+    top32_lib_ms = cuda_ms(lambda: torch.topk(
+        skeys.long() & 0xFFFFFFFF, 32, largest=False), 5)
+    print(f"[{card}] topk_keys (16384, 160) k=6 r=4: {topk_ms:.4f} ms; "
+          f"bytes {kb[2]:.4f} ms, ops {kb[3]:.4f} ms ({lane_digits} searched "
+          f"lane-digits) -> bound {kb[0]:.4f} ms by {kb[1]}; plain "
+          f"{topk_plain_ms:.3f} ms; torch.topk(largest=False) on the "
+          f"widened keys {topk_lib_ms:.4f} ms, on sign-flipped int32 keys "
+          f"{topk_i32_ms:.4f} ms", flush=True)
+    print(f"[{card}] topk_keys (4096, 1024) k=32 r=4: {top32_ms:.4f} ms; "
+          f"torch.topk {top32_lib_ms:.4f} ms", flush=True)
+    # a row wider than the registers: top-50 over olmo-1b's vocabulary,
+    # keys staged in shared memory
+    vinv = ~bitplane_pack.pack_keys(vocab)
+    same("radix_topk", radix_topk.topk_keys(vinv, 50)[1],
+         topk_keys_ref(vinv, 50)[1], "vocabulary top-50 idx")
+    vocab_ms = cuda_ms(lambda: radix_topk.topk_keys(vinv, 50), 5)
+    vwide = vinv.long() & 0xFFFFFFFF
+    vocab_lib_ms = cuda_ms(lambda: torch.topk(vwide, 50, largest=False), 5)
+    print(f"[{card}] topk_keys (64, {OLMO_VOCAB}) k=50 r=4: {vocab_ms:.4f} "
+          f"ms; torch.topk(largest=False) on the widened keys "
+          f"{vocab_lib_ms:.4f} ms", flush=True)
+
+    # the whole topk() call: host clock, its steps' device times, and the
+    # device's busy share from the profiler
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tsort.topk(logits, 6, engine="fused-topk")
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / reps * 1e3
+    _, ix = radix_topk.topk_keys(inv, 6)
+    steps = {"pack": cuda_ms(lambda: bitplane_pack.pack_keys(logits), 20),
+             "invert": cuda_ms(lambda: ~inv, 20),
+             "top-k": cuda_ms(lambda: radix_topk.topk_keys(inv, 6), 20),
+             "gather": cuda_ms(lambda: torch.gather(logits, -1, ix.long()),
+                               20)}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tsort.topk(logits, 6, engine="fused-topk")
+        torch.cuda.synchronize()
+    kernels_us = sorted(
+        ((e.self_device_time_total / reps, e.key[:48])
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(t for t, _ in kernels_us) / 1e3
+    print(f"[{card}] topk(fused-topk) (16384, 160) whole call (host clock, "
+          f"synchronised, mean of {reps}): {call_ms:.4f} ms; device time "
+          "of its steps alone: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in steps.items())
+          + f" (sum {sum(steps.values()):.4f} ms); profiler: device busy "
+          f"{busy_ms:.4f} ms a call, idle share "
+          f"{1 - busy_ms / call_ms:.3f}; kernels (us a call): "
+          + "; ".join(f"{n} {t:.1f}" for t, n in kernels_us), flush=True)
+
+    # 32-bit sort paths, host clock around the whole call
+    sort_times = {}
+    for name, kw in (("fused-topk stop_after=32",
+                      dict(engine="fused-topk", stop_after=32)),
+                     ("radix", dict(engine="radix"))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            sort(xs, **kw)
+        sort_times[name] = (time.perf_counter() - t0) / 3 * 1e3
+    radix_dev_ms = cuda_ms(lambda: rs.radix_sort_keys(skeys, r=8), 3)
+    print(f"[{card}] sort() (4096, 1024) f32 whole call: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in sort_times.items())
+        + f"; of which radix_sort_keys on the device keys {radix_dev_ms:.2f}"
+        f" ms, the top-32 kernel {top32_ms:.4f} ms", flush=True)
+
+    # the pruned MLP product
+    mm_ms = cuda_ms(lambda: masked_matmul.pruned_matmul(xg, wg, keep_g), 10)
+    mm_plain_ms = cuda_ms(lambda: pruned_matmul_ref(xg, wg, keep_g), 5)
+    mm_lib_ms = cuda_ms(lambda: torch.matmul(xg * keep_g, wg), 10)
+    m_, k_, n_ = xg.shape[0], xg.shape[1], wg.shape[1]
+    kept = int(keep_g.sum())
+    mm_bytes = 2 * (m_ * k_ + k_ * n_ + m_ * n_) + k_
+    mm_by_bytes = mm_bytes / HBM_BYTES_PER_S * 1e3
+    mm_by_ops = 2 * m_ * kept * n_ / BF16_FLOPS_PER_S * 1e3
+    mb = (max(mm_by_bytes, mm_by_ops),
+          "bytes" if mm_by_bytes >= mm_by_ops else "operations")
+    print(f"[{card}] pruned_matmul (4096, 2048) @ (2048, 8192) bf16, "
+          f"{kept} lanes kept: {mm_ms:.4f} ms "
+          f"({2 * m_ * kept * n_ / (mm_ms * 1e-3) / 1e12:.1f} T useful "
+          f"op/s); bytes {mm_by_bytes:.4f} ms, ops {mm_by_ops:.4f} ms -> "
+          f"bound {mb[0]:.4f} ms by {mb[1]}; plain {mm_plain_ms:.4f} ms; "
+          f"torch.matmul(x * keep, w) {mm_lib_ms:.4f} ms", flush=True)
+
     # ---- 6. kernel line, then the device line
     kernels = [
         {"name": "fused_tns", "route": "cuda",
@@ -336,6 +742,27 @@ def main() -> int:
          "max_abs_err": float(err["digit_read"]), "ms": dr_ms,
          "plain_ms": dr_plain_ms, "bound_ms": db[0], "bound_by": db[1],
          "library_ms": None},
+        {"name": "bitplane_pack", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bitplane_pack.cu",
+         "replaces": "src/repro/kernels/bitplane_pack.py:19",
+         "launches": topk_launches["bitplane_pack"],
+         "max_abs_err": float(err["bitplane_pack"]), "ms": pack_ms,
+         "plain_ms": pack_plain_ms, "bound_ms": pb[0], "bound_by": pb[1],
+         "library_ms": None},
+        {"name": "radix_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/radix_topk.cu",
+         "replaces": "src/repro/kernels/radix_topk.py:37",
+         "launches": topk_launches["radix_topk"],
+         "max_abs_err": float(err["radix_topk"]), "ms": topk_ms,
+         "plain_ms": topk_plain_ms, "bound_ms": kb[0], "bound_by": kb[1],
+         "library_ms": topk_lib_ms},
+        {"name": "masked_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+         "replaces": "src/repro/kernels/masked_matmul.py:25",
+         "launches": mm_launches["masked_matmul"],
+         "max_abs_err": float(err["masked_matmul"]), "ms": mm_ms,
+         "plain_ms": mm_plain_ms, "bound_ms": mb[0], "bound_by": mb[1],
+         "library_ms": mm_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

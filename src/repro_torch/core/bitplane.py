@@ -9,6 +9,17 @@ in the reference (``repro.core.bitplane``); :func:`planes_from_numpy`
 carries the programmed image onto the device.  ``sort_key`` order equals
 value order for every format, so one unsigned MSB-first walk sorts
 everything.
+
+Device keys (:func:`sort_key_t`, :func:`key_to_value_t`,
+:func:`keys_from_numpy`) follow one convention: an unsigned key of up to
+32 bits is carried in an **int32 tensor holding the same bits** (torch
+has no ``>>``, ``~``, ``min`` or ``argmin`` for uint32).  A 32-bit key
+``0xFFFFFFFF`` is the int32 ``-1``; 8- and 16-bit keys sit in the low
+bits.  A dtype no longer tells a key's width, so the key functions
+return it or take it.  Digit extraction ``(k >> s) & (2**r - 1)`` is
+exact on these bits although ``>>`` is arithmetic, and ``~`` is the same
+bit operation; raw keys are never compared with ``<`` or ``min`` — widen
+them with ``& 0xFFFFFFFF`` to int64 first.
 """
 from __future__ import annotations
 
@@ -158,6 +169,95 @@ def key_to_value(key, width: int, fmt: str):
     else:
         raise ValueError(fmt)
     return from_raw_bits(u, width, fmt)
+
+
+# ---------------------------------------------------------------------------
+# Device sort keys for in-model use (throughput mode): the counterparts of
+# the reference's ``sort_key_jnp`` / ``key_to_value_jnp``, under the
+# int32-bits convention of the module docstring.
+# ---------------------------------------------------------------------------
+
+_SIGN32 = -(1 << 31)          # 0x80000000 as int32 bits
+
+# dtype -> key width (bits) of its sort key
+_KEY_WIDTH = {torch.float32: 32, torch.int32: 32, torch.uint32: 32,
+              torch.float16: 16, torch.bfloat16: 16, torch.int16: 16,
+              torch.uint16: 16, torch.uint8: 8}
+
+
+def flip_key_t(keys: torch.Tensor, width: int) -> torch.Tensor:
+    """Key of the reversed order (the reference's ``~keys`` on a
+    ``width``-bit unsigned dtype): every key bit flipped, the bits above
+    ``width`` left clear."""
+    return ~keys if width == 32 else keys ^ ((1 << width) - 1)
+
+
+def sort_key_t(x: torch.Tensor):
+    """``(keys, width)``: order-preserving unsigned keys of ``x`` as int32
+    bits, and their width.  float32/int32/uint32 give 32-bit keys,
+    float16/bfloat16/int16/uint16 16-bit, uint8 8-bit (the reference's
+    ``sort_key_jnp``: floats flip every bit when negative, the sign bit
+    otherwise; signed ints flip the sign bit)."""
+    dt = x.dtype
+    if dt not in _KEY_WIDTH:
+        raise ValueError(f"unsupported dtype {dt}")
+    width = _KEY_WIDTH[dt]
+    if dt == torch.float32:
+        u = x.view(torch.int32)
+        return torch.where(u < 0, ~u, u ^ _SIGN32), width
+    if dt in (torch.float16, torch.bfloat16):
+        u = x.view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, u ^ 0xFFFF, u ^ 0x8000), width
+    if dt == torch.int32:
+        return x ^ _SIGN32, width
+    if dt == torch.uint32:
+        return x.view(torch.int32), width
+    if dt == torch.int16:
+        return (x.to(torch.int32) & 0xFFFF) ^ 0x8000, width
+    return x.to(torch.int32), width           # uint16, uint8
+
+
+def key_to_value_t(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`sort_key_t`: int32-bit ``keys`` back to values of
+    ``dtype`` (the key width is the dtype's)."""
+    if dtype not in _KEY_WIDTH:
+        raise ValueError(f"unsupported dtype {dtype}")
+    if dtype == torch.float32:
+        return torch.where(keys >= 0, ~keys, keys ^ _SIGN32).view(dtype)
+    if dtype in (torch.float16, torch.bfloat16):
+        k = keys & 0xFFFF
+        u = torch.where(k < 0x8000, k ^ 0xFFFF, k ^ 0x8000)
+        return _low16(u).view(dtype)
+    if dtype == torch.int32:
+        return keys ^ _SIGN32
+    if dtype == torch.uint32:
+        return keys.view(torch.uint32)
+    if dtype == torch.int16:
+        return _low16((keys & 0xFFFF) ^ 0x8000)
+    return keys.to(dtype)                     # uint16, uint8
+
+
+def _low16(u: torch.Tensor) -> torch.Tensor:
+    """The low 16 bits of int32 ``u`` (0..0xFFFF) as int16 bits."""
+    return (u - ((u >> 15) & 1) * 0x10000).to(torch.int16)
+
+
+def keys_from_numpy(a, *, device) -> torch.Tensor:
+    """Carry the reference package's numpy inputs of the throughput path
+    onto ``device``: unsigned keys of up to 32 bits become int32 bits (the
+    module's convention), float32 stays as it is, bfloat16 is widened to
+    float32 (exact), and a bool mask stays bool."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype in (np.uint8, np.uint16):
+        a = a.astype(np.int32)
+    elif a.dtype not in (np.float32, np.bool_):
+        raise TypeError(f"no device key convention for {a.dtype}")
+    # a copy: the tensor never aliases the caller's (maybe read-only) array
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def planes_from_numpy(planes: np.ndarray, sign: Optional[np.ndarray] = None,

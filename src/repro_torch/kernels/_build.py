@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,6 +48,11 @@ def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def kernel_names() -> List[str]:
+    """Every kernel in ``csrc/``, by name (the ``.cu`` file's stem)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def build(names: Iterable[str]) -> None:

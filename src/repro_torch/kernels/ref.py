@@ -1,9 +1,26 @@
-"""Plain PyTorch versions of the digit-read kernel (the counterpart of
-``repro.kernels.ref``).  The fused TNS kernel's plain version lives beside
-its wrapper in :mod:`repro_torch.kernels.fused_tns`."""
+"""Plain PyTorch versions of the digit-read, top-k, key-pack and
+pruned-matmul kernels (the counterpart of ``repro.kernels.ref``).  The
+fused TNS kernel's plain version lives beside its wrapper in
+:mod:`repro_torch.kernels.fused_tns`.  Keys are int32 tensors holding
+uint32 key bits (:mod:`repro_torch.core.bitplane`)."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import bitplane as bp
+from repro_torch.core import radix_select as rs
+
+
+def topk_keys_ref(keys: torch.Tensor, k: int, r: int = 4):
+    """Plain version of :func:`repro_torch.kernels.radix_topk.topk_keys`:
+    (min keys, first-tie indices), each (B, k) int32, of the k smallest
+    32-bit keys per row, via the throughput engine's iterated min-search.
+    It walks the kernel's digit shifts ``32-r, 32-2r, ..., >= 0``, so for
+    an ``r`` that does not divide 32 the low ``32 mod r`` key bits are
+    never read and the returned keys lack them, as the reference kernel's
+    do; for every other ``r`` the keys are those of
+    :func:`repro_torch.core.radix_select.extract_topk`."""
+    return rs.min_search_rounds(keys, k, r, 32)
 
 
 def min_search_ref(planes: torch.Tensor, ascending: bool = True):
@@ -27,3 +44,24 @@ def min_search_ref(planes: torch.Tensor, ascending: bool = True):
         valid = torch.where(mixed[:, None], keep, valid)
         useful = useful + mixed.to(torch.int32)
     return mask, useful
+
+
+def pack_keys_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.bitplane_pack.pack_keys`:
+    uint32 sort keys (int32 bits) of float32 / bfloat16 / int32 input;
+    bfloat16 is widened to float32 first (exact)."""
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return bp.sort_key_t(x)[0]
+
+
+def unpack_keys_f32_ref(keys: torch.Tensor) -> torch.Tensor:
+    return bp.key_to_value_t(keys, torch.float32)
+
+
+def pruned_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                      keep_mask: torch.Tensor) -> torch.Tensor:
+    """``(x * keep_mask) @ w``: the masked input in x's dtype, the product
+    accumulated in float32, the result cast back to x's dtype."""
+    xm = x * keep_mask.to(x.dtype)[None, :]
+    return torch.matmul(xm.float(), w.float()).to(x.dtype)

@@ -4,14 +4,17 @@
     res = sort.sort(x, engine="fused-tns", k=4)          # on the card
     res = sort.sort(batch, engine="fused-tns", stop_after=8)   # (B, N)
     res = sort.sort(x, engine="fused-tns", device="cpu")  # plain versions
+    vals, idx = sort.topk(logits, 6, engine="fused-topk")   # tensors
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import bitplane as bp
+from repro_torch.core import radix_select as rs
 from repro_torch.kernels import backend
 from repro_torch.sort.registry import available_engines, get_engine
 from repro_torch.sort.result import SortResult
@@ -101,3 +104,46 @@ def sort(x, *, engine: str = "tns", fmt: Optional[str] = None,
 def engines():
     """name -> EngineSpec of everything registered."""
     return available_engines()
+
+
+# ---------------------------------------------------------------------------
+# In-model dispatchers (throughput mode) over tensors: the tensor's device
+# decides where they run.
+# ---------------------------------------------------------------------------
+
+TOPK_ENGINES = ("radix", "fused-topk", "torch")
+
+
+def topk(x: torch.Tensor, k: int, *, engine: str = "radix", r: int = 4
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, int32 indices) of the k LARGEST along the last axis,
+    descending.  Engines: ``radix`` (iterated digit-plane min-search in
+    plain torch, any rank), ``fused-topk`` (the fused CUDA kernel, the
+    router hot path; the reference's ``pallas``), ``torch``
+    (``torch.topk``, the comparison baseline; the reference's ``lax``)."""
+    if engine == "torch":
+        v, i = torch.topk(x, k)
+        return v, i.to(torch.int32)
+    if engine == "radix":
+        return rs.topk_values(x, k, r=r)
+    if engine == "fused-topk":
+        from repro_torch.kernels import ops
+        lead = tuple(x.shape[:-1])
+        v, i = ops.topk(x.reshape(-1, x.shape[-1]), k, r=r)
+        return v.reshape(lead + (k,)), i.reshape(lead + (k,))
+    raise ValueError(f"unknown topk engine {engine!r}; "
+                     f"expected one of {TOPK_ENGINES}")
+
+
+def topk_mask(x: torch.Tensor, k, *, largest: bool = True,
+              r: int = 8) -> torch.Tensor:
+    """Boolean mask of the k best elements along the last axis (histogram
+    radix-select; ``k`` may be a 0-d tensor — run-time tunable)."""
+    keys, w = bp.sort_key_t(x)
+    return rs.topk_threshold_mask(keys, k, r=r, smallest=not largest,
+                                  width=w)
+
+
+def prune_mask(x: torch.Tensor, k, *, r: int = 8) -> torch.Tensor:
+    """True for the k smallest |x| (in-situ pruning, §3.2)."""
+    return rs.prune_smallest_mask(x, k, r=r)

@@ -6,13 +6,17 @@ same permutation as the reference package's engine it ports:
     reference engine   port engine
     pallas-tns         fused-tns
     tns-oracle         tns-oracle
+    pallas-topk        fused-topk
+    radix              radix
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core import bitplane as bp
+from repro_torch.core import radix_select as rs
 from repro_torch.core import ref_tns as rt
-from repro_torch.kernels import fused_tns
+from repro_torch.kernels import fused_tns, radix_topk
 from repro_torch.sort.registry import register
 from repro_torch.sort.result import SortResult
 
@@ -81,3 +85,59 @@ def _fused_tns(x, *, width, fmt, k, ascending, level_bits, stop_after,
     return _finish(x, perm, engine="fused-tns", fmt=fmt, width=width,
                    k=k, stop_after=stop_after, cycles=cycles, drs=drs,
                    reload_cycles=rlc, strategy="tns")
+
+
+# ---------------------------------------------------------------------------
+# Throughput mode (vectorised digit-read machinery)
+# ---------------------------------------------------------------------------
+
+
+def _unsigned_keys(x, width, fmt, ascending) -> np.ndarray:
+    keys = bp.sort_key(x, width, fmt)
+    if not ascending:
+        dt = keys.dtype
+        keys = (((~keys.astype(np.uint64)) & np.uint64((1 << width) - 1))
+                .astype(dt))
+    return keys
+
+
+@register("radix", mode="throughput", supports_stop_after=True,
+          supports_batch=True,
+          description="LSB-first counting radix sort over order-preserving "
+                      "keys (stable, comparison-free); plain torch on the "
+                      "device")
+def _radix(x, *, width, fmt, k, ascending, level_bits, stop_after, device,
+           r=None):
+    keys = _unsigned_keys(x, width, fmt, ascending)
+    rr = r or (8 if width % 8 == 0 else 4)
+    # the walk covers the key's container, as the reference reads the
+    # width from the key dtype
+    perm = rs.radix_sort_keys(bp.keys_from_numpy(keys, device=device),
+                              r=rr, width=keys.dtype.itemsize * 8)
+    return _finish(x, perm.cpu().numpy(), engine="radix", fmt=fmt,
+                   width=width, stop_after=stop_after)
+
+
+@register("fused-topk", mode="throughput", supports_stop_after=True,
+          supports_batch=True,
+          description="Fused min-search kernel: the k smallest emitted in "
+                      "order by iterated radix-2^4 digit walks (CUDA)")
+def _fused_topk(x, *, width, fmt, k, ascending, level_bits, stop_after,
+                device):
+    keys = _unsigned_keys(x, width, fmt, ascending).astype(np.uint32)
+    m = x.shape[-1] if stop_after is None else min(stop_after, x.shape[-1])
+    if m > 32:
+        # the kernel runs m min-searches a row: a top-m engine, not a full
+        # sorter (the router hot path is m <= 8)
+        raise NotImplementedError(
+            f"fused-topk extracts at most 32 minima per call (asked {m}); "
+            "use stop_after, or the 'radix' engine for full sorts")
+    kb = bp.keys_from_numpy(keys, device=device)
+    squeeze = kb.ndim == 1
+    if squeeze:
+        kb = kb[None]
+    _, idx = radix_topk.topk_keys(kb, m)
+    idx = idx.cpu().numpy()
+    if squeeze:
+        idx = idx[0]
+    return _finish(x, idx, engine="fused-topk", fmt=fmt, width=width)

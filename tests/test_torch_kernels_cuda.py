@@ -1,0 +1,93 @@
+"""The key-pack, radix top-k and pruned-matmul CUDA kernels against
+their plain PyTorch versions on the card.  The file imports no JAX, so it
+runs on a machine with a card and no JAX:
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Without a card every test skips."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bitplane as bp
+from repro_torch.kernels import bitplane_pack, masked_matmul, radix_topk, ref
+
+
+def _keys(shape, seed):
+    return np.random.default_rng(seed).integers(0, 2**32, shape,
+                                                dtype=np.uint32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 3, 4, 8])
+def test_topk_kernel_matches_plain_version_on_card(cuda_device, r):
+    keys = bp.keys_from_numpy(_keys((16, 160), seed=r), device=cuda_device)
+    keys[1] = 5
+    launches = radix_topk.LAUNCHES
+    got = radix_topk.topk_keys(keys, 6, r=r)
+    assert radix_topk.LAUNCHES == launches + 1
+    want = ref.topk_keys_ref(keys, 6, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16385, 50304, 70000])
+@pytest.mark.parametrize("r", [3, 8])
+def test_topk_kernel_wide_rows_match_plain_version_on_card(cuda_device, n,
+                                                           r):
+    # past 16384 lanes a row's keys leave the registers: staged in shared
+    # memory up to about 58K lanes, read from global memory beyond
+    keys = bp.keys_from_numpy(_keys((4, n), seed=n + r), device=cuda_device)
+    keys[1] = 5
+    keys[2, n - 9:] = 0
+    got = radix_topk.topk_keys(keys, 6, r=r)
+    want = ref.topk_keys_ref(keys, 6, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_pack_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1027).astype(np.float32) * 1e3)
+    x = (x.to(torch.int32) if dtype == torch.int32 else x.to(dtype)).to(
+        cuda_device)
+    launches = bitplane_pack.LAUNCHES
+    got = bitplane_pack.pack_keys(x)
+    assert bitplane_pack.LAUNCHES == launches + 1
+    assert torch.equal(got, ref.pack_keys_ref(x))
+    if dtype == torch.float32:
+        assert torch.equal(bitplane_pack.unpack_keys_f32(got), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(130, 257, generator=g).to(dtype).to(cuda_device)
+    w = torch.randn(257, 120, generator=g).to(dtype).to(cuda_device)
+    keep = (torch.rand(257, generator=g) > 0.3).to(cuda_device)
+    launches = masked_matmul.LAUNCHES
+    got = masked_matmul.pruned_matmul(x, w, keep)
+    assert masked_matmul.LAUNCHES == launches + 1
+    want = ref.pruned_matmul_ref(x, w, keep)
+    # both within the float32-accumulation bound of the float64 product:
+    # one float32 ulp per addition over K terms (acc), plus the output's
+    # rounding, at most u * (|exact| + acc) with u the output type's unit
+    # roundoff; the two sum in different orders, so a fixed tolerance
+    # between them would be a tuned one
+    xm = (x.double() * keep.double())
+    exact = xm @ w.double()
+    unit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    acc = x.shape[1] * 2.0 ** -23 * (xm.abs() @ w.double().abs())
+    tol = acc * (1 + unit) + unit * exact.abs()
+    for y in (got, want):
+        assert bool(((y.double() - exact).abs() <= tol).all())

@@ -25,7 +25,8 @@ FMT_DATA = {
     "float": (lambda r, s: r.standard_normal(s).astype(np.float16), 16),
 }
 # reference engine -> the port's engine of the same function
-ENGINE_MAP = {"pallas-tns": "fused-tns", "tns-oracle": "tns-oracle"}
+ENGINE_MAP = {"pallas-tns": "fused-tns", "tns-oracle": "tns-oracle",
+              "pallas-topk": "fused-topk", "radix": "radix"}
 
 
 def _data(fmt, shape, seed):
@@ -42,6 +43,9 @@ def _assert_same_result(got, want):
     for f in ("fmt", "width", "n", "strategy", "k", "level_bits", "banks"):
         assert getattr(got, f) == getattr(want, f), f
     gm, wm = got.metrics(), want.metrics()
+    if gm is None or wm is None:      # engines that report no cycles
+        assert gm is None and wm is None
+        return
     assert dataclasses.asdict(gm) == pytest.approx(dataclasses.asdict(wm),
                                                    rel=1e-12)
 
@@ -84,6 +88,35 @@ def test_fused_engine_guards(x, kw):
     # parentheses are each package's own)
     bound = lambda e: str(e.value).split(" ", 1)[1].split(" (")[0]
     assert bound(got) == bound(want)
+
+
+@pytest.mark.parametrize("shape, stop_after", [((40,), None),
+                                               ((2, 50), 33)])
+def test_fused_topk_extracts_at_most_32_minima(shape, stop_after):
+    x = np.zeros(shape, np.uint8)
+    with pytest.raises(NotImplementedError) as got:
+        tsort.sort(x, engine="fused-topk", stop_after=stop_after,
+                   device="cpu")
+    with pytest.raises(NotImplementedError) as want:
+        jsort.sort(x, engine="pallas-topk", stop_after=stop_after)
+    assert str(got.value) == str(want.value).replace("pallas-topk",
+                                                     "fused-topk")
+    res = tsort.sort(x, engine="fused-topk", stop_after=32, device="cpu")
+    assert res.indices.shape == shape[:-1] + (32,)
+
+
+@pytest.mark.parametrize("width", [6, 12])
+@pytest.mark.parametrize("ascending", [True, False])
+def test_radix_engine_walks_the_key_container(width, ascending):
+    # width 6 and 12 with r = 4: the reference sorts the uint8 / uint16
+    # container's 8 / 16 bits
+    x = np.random.default_rng(width).integers(0, 1 << width, (3, 30))
+    kw = dict(fmt="unsigned", width=width, ascending=ascending)
+    want = jsort.sort(x, engine="radix", **kw)
+    got = tsort.sort(x, engine="radix", device="cpu", **kw)
+    _assert_same_result(got, want)
+    got_r = tsort.sort(x, engine="radix", device="cpu", r=2, **kw)
+    np.testing.assert_array_equal(got_r.indices, want.indices)
 
 
 def test_fused_engine_takes_no_tpu_grid_knobs():
@@ -132,7 +165,8 @@ def test_sort_refuses_to_run_without_a_card_unless_asked(monkeypatch):
 
 def test_registry_is_the_ports_own():
     names = sorted(tsort.engines())
-    assert names == ["fused-tns", "tns-oracle"]
+    assert names == ["fused-tns", "fused-topk", "radix", "tns-oracle"]
+    assert "fused-topk" not in jsort.engines()
     assert "fused-tns" not in jsort.engines()
     spec = tsort.get_engine("fused-tns")
     assert spec.supports_batch and spec.strategy == "tns"
@@ -168,11 +202,13 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import numpy as np
 from repro_torch import sort
-from repro_torch.core import cost, ref_tns
-from repro_torch.kernels import digit_read, fused_tns
-res = sort.sort(np.array([3, 1, 2], np.uint8), engine="fused-tns",
-                device="cpu")
-assert res.indices.tolist() == [1, 2, 0], res.indices
+from repro_torch.core import cost, radix_select, ref_tns
+from repro_torch.kernels import (bitplane_pack, digit_read, fused_tns,
+                                 masked_matmul, ops, radix_topk)
+for engine in ("fused-tns", "fused-topk", "radix"):
+    res = sort.sort(np.array([3, 1, 2], np.uint8), engine=engine,
+                    device="cpu")
+    assert res.indices.tolist() == [1, 2, 0], (engine, res.indices)
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
