@@ -13,6 +13,9 @@ order; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card: the fused
    TNS and digit-read kernels on a grid of formats, LIFO depths, stop
    points and directions, plus the useful-DR cross-check between the two;
+   the fused kernel also at N around its word edges (31, 32, 33, 1023,
+   1025, 4096) with k in {1, 17}, W = 30 unsigned, and past 16384 lanes
+   with W = 30 (its shared-memory fallback);
    key pack / unpack on float32, bfloat16 and int32 with +-0, +-inf and
    NaN; radix top-k over N in {1, 60, 160, 1024}, k in {1, 6, 32}, r in
    {1, 3, 4, 8} with an all-ties row, and over rows wider than the
@@ -45,9 +48,10 @@ order; any failure raises and exits non-zero:
       (plain torch);
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
-   tensor-core operations over 989 T/s, the larger), the plain version's
-   time and one PyTorch call computing the same function where there is
-   one; a breakdown of the ``topk()`` call; the top-k kernel on
+   tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
+   operations also counted word by word, and over the int32 issue rate),
+   the plain version's time and one PyTorch call computing the same
+   function where there is one; a breakdown of the ``topk()`` call; the top-k kernel on
    vocabulary-wide rows (64, 50304), keys staged in shared memory;
 6. one JSON line describing each kernel, then the device line last.
 """
@@ -56,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +71,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 ALU_OPS_PER_S = 67e12          # H100 SXM peak outside the tensor cores
+# Hopper's int32 issue rate: 64 results per clock per SM (NVIDIA's Hopper
+# architecture white paper), taken at the SM clock nvidia-smi reports
+INT32_OPS_PER_CLOCK_PER_SM = 64
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bfloat16 tensor cores
 # SM cycles the card sleeps per timed call while the host queues the calls
 # (about 0.2 ms at the H100's clock)
@@ -76,6 +84,13 @@ SLEEP_CYCLES_PER_CALL = 400_000
 # length), deepest divergence (max), divergence bit (shift, or), emission
 # test
 FUSED_OPS_PER_LANE_EPISODE = 15
+# the same episodes counted on 32-lane words, as the bit-sliced kernel
+# does them: per column read and word, the kept-digit narrowing (xor,
+# and), the excluded word (xor) and two non-empty flags; per episode and
+# word, the resumed set (and with alive), its count (popcount), the sign
+# test (and) and the emission's clear (and-not)
+FUSED_OPS_PER_WORD_COLUMN = 5
+FUSED_OPS_PER_WORD_EPISODE = 4
 # per lane and column: compare, then OR into the hit and keep flags
 DR_OPS_PER_LANE_COLUMN = 3
 # integer operations the top-k min-search needs per searched lane and
@@ -263,6 +278,15 @@ def main() -> int:
         print(f"ptxas {name}:", " | ".join(
             ln.strip() for ln in log.splitlines() if "Used" in ln
             or "spill" in ln), flush=True)
+    # the fused kernel's instantiations, by words of a column per thread
+    wpt = re.findall(r"fused_tns_kernelILi(\d+)E.*?\n\s*(\d+) bytes stack "
+                     r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                     r"loads\n.*?Used (\d+) registers",
+                     _build.build_logs.get("fused_tns", ""), flags=re.S)
+    print("fused_tns ptxas: " + "; ".join(
+        f"{w} word(s) a thread: {regs} registers, spills {st} B stored / "
+        f"{ld} B loaded, stack {fr} B" for w, fr, st, ld, regs in wpt),
+        flush=True)
 
     # ---- 3. kernels vs plain versions on the card
     rng = np.random.default_rng(0)
@@ -279,6 +303,32 @@ def main() -> int:
                                    f"stop={stop} asc={asc}", k=k, fmt=fmt,
                                    ascending=asc, stop_after=stop)
                         cells += 1
+    # word edges: lane i is bit i & 31 of word i >> 5, and a thread holds
+    # one word of each column up to N = 1024, more past it
+    for fmt, width in FORMATS.items():
+        for n in (31, 32, 33, 1023, 1025, 4096):
+            x = gen(fmt, rng, (64, n))
+            x[1] = x[1, 0]                     # an all-ties row
+            x[2] = x[2] // 64 * 64             # heavy duplicates
+            planes, sign = planes_of(x, width, fmt)
+            for k in (1, 17):
+                for stop in (6, None if n <= 1025 else 500):
+                    fused_pair(planes, sign, f"{fmt} N={n} k={k} "
+                               f"stop={stop}", k=k, fmt=fmt,
+                               ascending=k == 1, stop_after=stop)
+                    cells += 1
+    # the widest key, then past 16384 lanes with W = 30, where the stored
+    # sets leave shared memory to the columns and a walk rebuilds them
+    for n, stops in ((1000, (6, None)), (20000, (64,))):
+        x = rng.integers(0, 2**30, (64 if n < 2000 else 8, n))
+        x[1] = x[1] % 5
+        planes, sign = planes_of(x, 30, "unsigned")
+        for k in (1, 2, 31):
+            for stop in stops:
+                fused_pair(planes, sign, f"unsigned W=30 N={n} k={k} "
+                           f"stop={stop}", k=k, fmt="unsigned",
+                           ascending=k != 2, stop_after=stop)
+                cells += 1
     ties = torch.zeros((2, 8, 16), dtype=torch.uint8, device=dev)
     fused_pair(ties, None, "all ties", k=2, fmt="unsigned", ascending=True,
                stop_after=None)
@@ -541,6 +591,10 @@ def main() -> int:
         planes, sign, k=2, fmt="float"), 5)
     topm_ms = cuda_ms(lambda: fused_tns.fused_tns_rank(
         planes_b, sign_b, k=2, fmt="float", stop_after=64), 5)
+    # four banks (one block) an SM: the time of the episode chain itself
+    few = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    fused_few_ms = cuda_ms(lambda: fused_tns.fused_tns_rank(
+        planes[:few], sign[:few], k=2, fmt="float"), 5)
     dr_ms = cuda_ms(lambda: digit_read.min_search(planes), 20)
     t0 = time.perf_counter()
     for _ in range(3):
@@ -566,8 +620,34 @@ def main() -> int:
     lib_ms = cuda_ms(lambda: torch.sort(keys_t, dim=1, stable=True), 20)
     dr_plain_ms = cuda_ms(lambda: min_search_ref(planes), 3)
 
+    sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    int32_ops_per_s = (INT32_OPS_PER_CLOCK_PER_SM * sm_hz
+                       * torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+
+    def word_ops(counters, n):
+        """The fused episodes' operations counted on 32-lane words, from a
+        run's counters: DRs (columns read) and episodes, summed over banks."""
+        words = -(-n // 32)
+        return words * (FUSED_OPS_PER_WORD_COLUMN * int(counters[:, 1].sum())
+                        + FUSED_OPS_PER_WORD_EPISODE
+                        * int(counters[:, 5].sum()))
+
+    def ops_bounds(lane_ops, word_ops_):
+        """The fused kernel's operation bounds: both counts, both rates."""
+        return ", ".join(
+            f"{what} {ops} ops: {ops / ALU_OPS_PER_S * 1e3:.4f} ms at 67 T/s, "
+            f"{ops / int32_ops_per_s * 1e3:.4f} ms at the int32 rate "
+            f"({int32_ops_per_s / 1e12:.2f} T/s, {sm_hz / 1e6:.0f} MHz)"
+            for what, ops in (("per alive lane", lane_ops),
+                              ("per word", word_ops_)))
+
     fused_bytes = planes.numel() + sign.numel() + 4 * B * N + 4 * B * 8
     fused_ops = lane_eps * FUSED_OPS_PER_LANE_EPISODE
+    fused_word_ops = word_ops(cnt, N)
     dr_bytes = planes.numel() + B * N + 4 * B
     dr_ops = B * W * N * DR_OPS_PER_LANE_COLUMN
 
@@ -578,20 +658,30 @@ def main() -> int:
                                        else "operations"), by_bytes, by_ops
 
     fb = bound(fused_bytes, fused_ops)
+    fwb = bound(fused_bytes, fused_word_ops)   # the kernel's line: the least
     db = bound(dr_bytes, dr_ops)
     topm_ops = int(cnt_b[:, 6].sum()) * FUSED_OPS_PER_LANE_EPISODE
-    tb = bound(planes_b.numel() + sign_b.numel() + 4 * 512 * 16384
-               + 4 * 512 * 8, topm_ops)
+    topm_bytes = (planes_b.numel() + sign_b.numel() + 4 * 512 * 16384
+                  + 4 * 512 * 8)
+    tb = bound(topm_bytes, topm_ops)
+    twb = bound(topm_bytes, word_ops(cnt_b, planes_b.shape[2]))
+    keys_b = torch.from_numpy(keysb.astype(np.int32)).to(dev)
+    topm_lib_ms = cuda_ms(lambda: torch.topk(keys_b, 64, largest=False), 20)
     print(f"[{card}] fused_tns (4096, 1024) full sort k=2: {fused_ms:.4f} ms;"
-          f" bytes bound {fb[2]:.4f} ms ({fused_bytes} B), ops bound "
-          f"{fb[3]:.4f} ms ({fused_ops} int ops) -> bound by {fb[1]}; "
-          f"plain {plain_s * 1e3:.1f} ms; torch.sort {lib_ms:.4f} ms",
-          flush=True)
+          f" bytes bound {fb[2]:.4f} ms ({fused_bytes} B); "
+          + ops_bounds(fused_ops, fused_word_ops)
+          + f" -> the least, {fwb[0]:.4f} ms, bound by {fwb[1]}; plain "
+          f"{plain_s * 1e3:.1f} ms; torch.sort {lib_ms:.4f} ms; the first "
+          f"{few} banks alone (4 an SM) {fused_few_ms:.4f} ms", flush=True)
     print(f"[{card}] sort(engine='fused-tns') whole call: {sort_ms:.1f} ms; "
           "steps: " + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items()),
           flush=True)
     print(f"[{card}] fused_tns (512, 16384) stop_after=64: {topm_ms:.4f} ms;"
-          f" bound {tb[0]:.4f} ms by {tb[1]}", flush=True)
+          f" bytes bound {tb[2]:.4f} ms; "
+          + ops_bounds(topm_ops, word_ops(cnt_b, planes_b.shape[2]))
+          + f" -> the least, {twb[0]:.4f} ms, bound by {twb[1]}; "
+          f"torch.topk(64, largest=False) on the keys {topm_lib_ms:.4f} ms",
+          flush=True)
     print(f"[{card}] min_search (4096, 16, 1024): {dr_ms:.4f} ms; bound "
           f"{db[0]:.4f} ms by {db[1]}; plain {dr_plain_ms:.3f} ms",
           flush=True)
@@ -733,7 +823,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused_tns.py:155",
          "launches": launches["fused_tns"],
          "max_abs_err": float(err["fused_tns"]), "ms": fused_ms,
-         "plain_ms": plain_s * 1e3, "bound_ms": fb[0], "bound_by": fb[1],
+         "plain_ms": plain_s * 1e3, "bound_ms": fwb[0], "bound_by": fwb[1],
          "library_ms": lib_ms},
         {"name": "digit_read", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/digit_read.cu",

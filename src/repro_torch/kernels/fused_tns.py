@@ -2,11 +2,14 @@
 write-back, a whole sort per instance in one kernel launch.
 
 The CUDA kernel ``csrc/fused_tns.cu`` replaces the Pallas kernel
-``repro.kernels.fused_tns._fused_tns_kernel`` and replays the same
+``repro.kernels.fused_tns._fused_tns_kernel`` and computes the same
 emission-episode model (that module's docstring derives it from the
-paper's controller).  :func:`fused_tns_rank_ref` is its plain PyTorch
-version: the same episodes over (B, N) int32 tensors with a Python loop,
-run for CPU tensors and as the comparison point on the card.
+paper's controller), bit-sliced: the digit columns are 32-lane words, one
+warp holds a bank, and each episode's descent is a walk over columns with
+a warp vote where the TPU kernel takes an argmin over per-lane keys.
+:func:`fused_tns_rank_ref` is its plain PyTorch version in the same form,
+over (B, W, ceil(N/32)) words with a Python loop, run for CPU tensors and
+as the comparison point on the card.
 
 Outputs are a rank ring (rank[i] = emission slot of element i, -1 if
 never emitted) and a (B, 8) counter block; the wrappers invert the ring
@@ -32,8 +35,9 @@ LAUNCHES = 0
 _CYC, _DRS, _RLC, _UDR, _OUT, _EPI, _LANES = range(7)
 _NCNT = 8
 _FMT_CODE = {bp.UNSIGNED: 0, bp.TWOS: 1, bp.SIGNMAG: 2, bp.FLOAT: 3}
-MAX_N = 1 << 15    # exclusive: one instance's keys fill one block's smem
-MAX_WIDTH = 30     # a lane's digit column is packed into one int32 key
+MAX_N = 1 << 15    # exclusive: a bank's columns fit one block's smem
+MAX_WIDTH = 30     # the reference's bound: its keys are int32 words
+_WORD = 0xFFFFFFFF  # the plain version's 32-bit words, held in int64
 
 
 class FusedOut(NamedTuple):
@@ -46,35 +50,54 @@ class FusedOut(NamedTuple):
     lane_episodes: torch.Tensor  # (B,) int32 alive lanes summed over them
 
 
-def _bitlength(x: torch.Tensor) -> torch.Tensor:
-    """Bit length of non-negative int32 ``x`` (0 -> 0), from the float64
-    exponent (exact for every int32)."""
-    e = (x.double().view(torch.int64) >> 52) & 0x7FF
-    return torch.where(x == 0, 0, e - 1022).to(torch.int32)
-
-
 def _shl1(shift: torch.Tensor) -> torch.Tensor:
-    """1 << shift, elementwise, in int32."""
-    return torch.ones_like(shift, dtype=torch.int32) << shift.to(torch.int32)
+    """1 << shift, elementwise, in int64."""
+    return torch.ones_like(shift, dtype=torch.int64) << shift.to(torch.int64)
 
 
 def _flip_mask(fmt: str, ascending: bool, width: int,
                neg_pend: torch.Tensor) -> torch.Tensor:
-    """Per-instance XOR mask turning the digit word into a key whose
-    integer minimum is the machine's descent winner (bit ``W-1-c`` is the
-    KEPT digit at column ``c``)."""
+    """Per-instance W-bit word whose bit ``W-1-c`` is the digit the
+    machine KEEPS at column ``c`` (the winner's digit wherever some
+    contender has it)."""
     msb = 1 << (width - 1)
     low = msb - 1
     if fmt == bp.UNSIGNED:
         v = 0 if ascending else (msb | low)
-        return torch.full(neg_pend.shape, v, dtype=torch.int32,
+        return torch.full(neg_pend.shape, v, dtype=torch.int64,
                           device=neg_pend.device)
     if fmt == bp.TWOS:
         v = msb if ascending else low
-        return torch.full(neg_pend.shape, v, dtype=torch.int32,
+        return torch.full(neg_pend.shape, v, dtype=torch.int64,
                           device=neg_pend.device)
     base = msb if ascending else 0
-    return torch.where(neg_pend, base | low, base).to(torch.int32)
+    return torch.where(neg_pend, base | low, base).to(torch.int64)
+
+
+def _words(bits: torch.Tensor) -> torch.Tensor:
+    """(B, ..., N) bool -> (B, ..., ceil(N/32)) int64 holding 32-bit words:
+    lane i is bit ``i & 31`` of word ``i >> 5``; pad bits are 0."""
+    n = bits.shape[-1]
+    nw = -(-n // 32)
+    pad = bits.new_zeros(bits.shape[:-1] + (nw * 32 - n,))
+    b = torch.cat([bits, pad], dim=-1).reshape(bits.shape[:-1] + (nw, 32))
+    shift = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return (b.to(torch.int64) << shift).sum(dim=-1)
+
+
+def _lanes(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, nw) words -> (B, n) bool lanes (the inverse of ``_words``)."""
+    shift = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words[..., None] >> shift) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :n] != 0
+
+
+def _popc(x: torch.Tensor) -> torch.Tensor:
+    """Population count of int64-held 32-bit words."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _WORD) >> 24
 
 
 def fused_tns_rank_ref(planes: torch.Tensor,
@@ -82,107 +105,130 @@ def fused_tns_rank_ref(planes: torch.Tensor,
                        fmt: str = bp.UNSIGNED, ascending: bool = True,
                        stop_n: int):
     """Plain version of the fused kernel: (rank (B, N) int32, counters
-    (B, 8) int32) for (B, W, N) planes and ``stop_n`` emissions."""
+    (B, 8) int32) for (B, W, N) planes and ``stop_n`` emissions.
+
+    It takes the kernel's steps on the kernel's data: every digit column
+    as (B, ceil(N/32)) 32-bit words (held in int64), the alive and sign
+    lanes as words, the LIFO's stored set for every column, and each
+    episode's descent as a walk over the columns that narrows a candidate
+    word set, with an any() or a count where the kernel takes a warp
+    reduction.  Banks move in lockstep: a bank's columns before its resume
+    column change nothing, and a bank that has emitted ``stop_n`` numbers
+    keeps its state."""
     B, W, N = planes.shape
     dev = planes.device
-    i32 = torch.int32
-    key = torch.zeros((B, N), dtype=i32, device=dev)
-    for c in range(W):
-        key = (key << 1) | (planes[:, c, :] != 0).to(i32)
+    i64 = torch.int64
+    col = _words(planes != 0)                        # (B, W, nw)
+    ncol = ~col & _WORD
+    stored = torch.zeros_like(col)     # the set that reached each column
+    alive = _words(torch.ones((B, N), dtype=torch.bool, device=dev))
     signed = fmt in (bp.SIGNMAG, bp.FLOAT)
     if signed:
-        sgn = (torch.zeros((B, N), dtype=torch.bool, device=dev)
-               if sign is None else sign != 0)
-        sign_dir = sgn if ascending else ~sgn
-    wmask = (1 << W) - 1
-    imax = torch.iinfo(i32).max
-    iota_w = torch.arange(W, dtype=i32, device=dev)
-    alive = torch.ones((B, N), dtype=torch.bool, device=dev)
-    zero = torch.zeros((B,), dtype=i32, device=dev)
-    pathv, skipv = zero.clone(), zero.clone()
-    present = torch.zeros((B, W), dtype=torch.bool, device=dev)
-    rank = torch.full((B, N), -1, dtype=i32, device=dev)
+        sgn = (torch.zeros_like(alive) if sign is None
+               else _words(sign != 0))
+        sign_dir = sgn if ascending else ~sgn & _WORD
+    iota_w = torch.arange(W, dtype=i64, device=dev)
+    pos_w = W - 1 - iota_w                           # column c -> its bit
+    rows = torch.arange(B, device=dev)
+    zero = torch.zeros((B,), dtype=i64, device=dev)
+    pathv, skipv, present = zero.clone(), zero.clone(), zero.clone()
+    rank = torch.full((B, N), -1, dtype=torch.int32, device=dev)
     out, cyc, drs, rlc, udr, epi, lanes = (zero.clone() for _ in range(7))
+
+    def any_(words):
+        return (words != 0).any(dim=-1)
 
     for _ in range(stop_n):
         running = out < stop_n
         if not bool(running.any()):
             break
-        run2 = running[:, None]
-        epi = epi + running.to(i32)
-        lanes = lanes + torch.where(running, N - out, 0).to(i32)
+        epi = epi + running.to(i64)
+        lanes = lanes + torch.where(running, N - out, 0)
 
-        # ---- reload: pop drained nodes, resume the deepest live one
+        # ---- reload: a present node is live iff its stored set still holds
+        # an alive lane; the deepest live one is resumed with that set
+        m0, col0 = alive, zero
         if k > 0:
-            md = (key ^ pathv[:, None]) & (~skipv & wmask)[:, None]
-            depth = W - _bitlength(md)
-            c_max = torch.where(alive, depth, 0).amax(dim=1)
-            live_lvl = present & (iota_w <= c_max[:, None])
-            c_res = torch.where(live_lvl, iota_w, -1).amax(dim=1).to(i32)
-            drained = present & (iota_w > c_res[:, None])
-            d = drained.sum(dim=1).to(i32)
-            spent = torch.where(running, (d - 1).clamp(min=0), 0).to(i32)
-            present = torch.where(
-                run2, present & (iota_w <= c_res[:, None]), present)
-            m0 = alive & (depth >= c_res[:, None])
-            pos_res = W - 1 - c_res                 # c_res == -1 -> W
-            keepm = ~(_shl1(pos_res) - 1)
-            resume = torch.where(c_res >= 0, _shl1(pos_res), 0).to(i32)
-            skipv = torch.where(running, (skipv & keepm) | resume, skipv)
+            sets = stored & alive[:, None, :]
+            size = _popc(sets).sum(dim=2)            # (B, W)
+            live = (((present[:, None] >> pos_w) & 1) != 0) & (size > 0)
+            c_res = torch.where(live, iota_w, -1).amax(dim=1)
+            hit, at = c_res >= 0, c_res.clamp(min=0)
+            m0 = torch.where(hit[:, None], sets[rows, at], alive)
+            pos_res = W - 1 - c_res                  # c_res == -1 -> W
+            below = _shl1(pos_res) - 1               # columns deeper
+            drained = present & below
+            spent = torch.where(running,
+                                (_popc(drained) - 1).clamp(min=0), 0)
+            present = torch.where(running, present & ~drained, present)
+            # the resumed column holds the PRE-exclusion set: it becomes a
+            # prefix hole; holes deeper belong to popped subtrees
+            resume = torch.where(hit, _shl1(pos_res), 0)
+            skipv = torch.where(running, (skipv & ~below) | resume, skipv)
             col0 = c_res + 1
             cyc = cyc + spent
             rlc = rlc + spent
-        else:
-            col0 = zero
-            m0 = alive
 
-        # ---- descent: argmin of key ^ flip over the resumed set
+        # ---- descent from col0 (no holes from there on): at each column
+        # keep the lanes with the kept digit if any has it; the column is
+        # mixed when some lanes have it and some do not
         if signed:
-            neg_pend = (alive & sign_dir).any(dim=1)
+            neg_pend = any_(alive & sign_dir)
         else:
             neg_pend = torch.zeros((B,), dtype=torch.bool, device=dev)
         flipv = _flip_mask(fmt, ascending, W, neg_pend)
-        cmask = (~skipv & wmask)[:, None] if k > 0 else wmask
-        ckey = torch.where(m0, (key ^ flipv[:, None]) & cmask, imax)
-        kmin = ckey.amin(dim=1)
-        isw = ckey == kmin[:, None]
-        t = isw.sum(dim=1).to(i32)
-        bl = _bitlength(ckey ^ kmin[:, None])
-        loser = m0 & ~isw
-        dm = torch.where(loser, W - bl, -1).amax(dim=1)
-        cend = torch.where(t >= 2, W, dm).clamp(max=W - 1).to(i32)
-        ep_drs = torch.where(running, (cend - col0 + 1).clamp(min=0),
-                             0).to(i32)
+        kept = ((flipv[:, None] >> pos_w) & 1) != 0  # (B, W)
+        m, some_kept, mixed = m0, [], []
+        for c in range(W):
+            z = m & torch.where(kept[:, c, None], col[:, c], ncol[:, c])
+            anyz = any_(z)
+            mix = (col0 <= c) & anyz & any_(m ^ z)
+            if k > 0:
+                stored[:, c] = torch.where(mix[:, None], m, stored[:, c])
+            m = torch.where(mix[:, None], z, m)
+            some_kept.append(anyz)
+            mixed.append(mix)
+        mixed = torch.stack(mixed, dim=1)
+        bits = torch.ones_like(pos_w) << pos_w
+        eb = (mixed * bits).sum(dim=1)
+        dm = torch.where(mixed, iota_w, -1).amax(dim=1)  # deepest mixed
+        # the winner's digit: the kept one where some lane had it
+        wdig = ~((torch.stack(some_kept, dim=1) * bits).sum(dim=1) ^ flipv)
+        t = _popc(m).sum(dim=1)                      # the winner tie set
+        # deepest column still read: W-1 when the winner is a tie, else
+        # the deepest mixed one
+        cend = torch.where(t >= 2, W - 1, dm)
+        ep_drs = torch.where(running, (cend - col0 + 1).clamp(min=0), 0)
         rm = torch.where(running & (cend >= col0),
-                         _shl1(W - col0) - _shl1(W - 1 - cend), 0).to(i32)
-        # OR of the losers' divergence bits: any over a one-hot of bl - 1
-        hit = (loser[:, :, None] & ((bl - 1)[:, :, None] == iota_w)).any(1)
-        ebits = (hit.to(i32) << iota_w).sum(dim=1).to(i32) & rm
-        udr = udr + sum(((ebits >> j) & 1) for j in range(W))
+                         _shl1(W - col0) - _shl1(W - 1 - cend), 0)
+        ebits = eb & rm
+        udr = udr + _popc(ebits)
         if k > 0:
-            pathv = torch.where(
-                running, (pathv & ~rm) | ((kmin ^ flipv) & rm), pathv)
-            # pushes at the mixed columns; drop-oldest keeps the deepest k
-            mixed_w = ((ebits[:, None] >> (W - 1 - iota_w)) & 1) != 0
-            union = present | mixed_w
-            sfx = union.flip(1).to(i32).cumsum(dim=1, dtype=i32).flip(1)
-            present = torch.where(run2, union & (sfx <= k), present)
+            pathv = torch.where(running, (pathv & ~rm) | (wdig & rm), pathv)
+            # pushes at the mixed columns; drop-oldest keeps the deepest
+            # k, the k lowest set bits
+            u, kept_k = present | ebits, zero
+            for _j in range(min(k, W)):
+                low = u & -u
+                kept_k, u = kept_k | low, u ^ low
+            present = torch.where(running, kept_k, present)
 
-        # ---- emission: whole tie set, consecutive index-order ranks
-        r = torch.minimum(t, (stop_n - out).clamp(min=0))
-        isw_i = isw.to(i32)
-        p = isw_i.cumsum(dim=1, dtype=i32) - isw_i
-        emit_now = isw & (p < r[:, None]) & run2
-        rank = torch.where(emit_now, out[:, None] + p, rank)
-        alive = alive & ~emit_now
-        out = out + torch.where(running, r, 0).to(i32)
+        # ---- emission: the first r winners, consecutive ranks, in index
+        # order
+        r = torch.where(running, torch.minimum(t, stop_n - out), 0)
+        win = _lanes(m, N).to(i64)
+        p = win.cumsum(dim=1) - win
+        emit = (win != 0) & (p < r[:, None])
+        rank = torch.where(emit, (out[:, None] + p).to(torch.int32), rank)
+        alive = alive & ~_words(emit)
+        out = out + r
         emit_cyc = torch.where(ep_drs == 0, torch.where(t > 1, r, 1),
                                (r - 1).clamp(min=0))
-        cyc = cyc + torch.where(running, emit_cyc, 0).to(i32) + ep_drs
+        cyc = cyc + torch.where(running, emit_cyc, 0) + ep_drs
         drs = drs + ep_drs
 
     cnt = torch.stack([cyc, drs, rlc, udr, out, epi, lanes, zero], dim=1)
-    return rank, cnt.to(i32)
+    return rank, cnt.to(torch.int32)
 
 
 @functools.cache

@@ -13,6 +13,7 @@ from repro.core import bitplane as jbp
 from repro.kernels import digit_read as jdr
 from repro.kernels import fused_tns as jft
 from repro_torch.core import bitplane as bp
+from repro_torch.core import ref_tns
 from repro_torch.kernels import digit_read, fused_tns
 
 FMT_DATA = {
@@ -113,6 +114,102 @@ def test_work_counters():
     assert ((got.episodes >= 1) & (got.episodes <= 12)).all()
     assert (got.lane_episodes >= got.episodes * (48 - 12 + 1)).all()
     assert (got.lane_episodes <= got.episodes * 48).all()
+
+
+def _distinct(fmt, n, b, seed):
+    """(b, n) values of ``fmt`` with n distinct sort keys a row (16 bits
+    wide), so that every episode emits exactly one number."""
+    rng = np.random.default_rng(seed)
+    if fmt == bp.FLOAT:
+        finite = np.flatnonzero((np.arange(1 << 16) >> 10) & 0x1F != 0x1F)
+        pick = [rng.choice(finite, n, replace=False) for _ in range(b)]
+        return np.stack(pick).astype(np.uint16).view(np.float16), 16
+    lo, dtype = {bp.UNSIGNED: (0, np.uint16), bp.TWOS: (-2**15, np.int16),
+                 bp.SIGNMAG: (1 - 2**15, np.int32)}[fmt]
+    span = (1 << 16) - (1 if fmt == bp.SIGNMAG else 0)
+    return np.stack([lo + rng.choice(span, n, replace=False)
+                     for _ in range(b)]).astype(dtype), 16
+
+
+def _check_oracle(x, width, fmt, *, k, stop_after, ascending=True,
+                  distinct=False):
+    """``_check`` (the JAX kernel in interpret mode, every field), then the
+    port's event-driven oracle row by row, then the work counters: exact
+    on distinct keys, within their bounds on ties."""
+    got = _check(x, width, fmt, k=k, stop_after=stop_after,
+                 ascending=ascending)
+    n = x.shape[1]
+    m = n if stop_after is None else min(stop_after, n)
+    for b in range(x.shape[0]):
+        o = ref_tns.tns_sort(x[b], width=width, k=k, fmt=fmt,
+                             ascending=ascending, stop_after=stop_after)
+        np.testing.assert_array_equal(got.perm[b, :m].numpy(), o.perm[:m])
+        assert (int(got.cycles[b]), int(got.drs[b]),
+                int(got.reload_cycles[b])) == (o.cycles, o.drs,
+                                               o.reload_cycles), b
+    eps, lanes = got.episodes, got.lane_episodes
+    if distinct:
+        assert (eps == m).all()
+        assert (lanes == sum(n - e for e in range(m))).all()
+    else:
+        assert ((eps >= 1) & (eps <= m)).all()
+        assert (lanes >= eps * (n - m + 1)).all()
+        assert (lanes <= eps * n).all()
+    assert (got.useful_drs <= got.drs).all()
+    return got
+
+
+@pytest.mark.parametrize("fmt", list(FMT_DATA))
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 1025])
+def test_word_boundaries(fmt, n):
+    # lane i is bit i & 31 of word i >> 5: N around a word's edge, and
+    # past one warp's 32 words (1025)
+    b, stop = (2, 64) if n > 64 else (3, None)
+    x, width = _distinct(fmt, n, b, seed=n)
+    _check_oracle(x, width, fmt, k=2, stop_after=stop, distinct=True)
+
+
+def test_tie_set_across_the_word_and_warp_edge():
+    # a 15-lane tie set of the least key over lanes 1010..1024: its ranks
+    # come from the exclusive scan across word 31 / 32
+    x, width = _distinct(bp.UNSIGNED, 1025, 2, seed=11)
+    x[:, :1010] |= 1
+    x[:, 1010:] = 0
+    got = _check_oracle(x, width, bp.UNSIGNED, k=2, stop_after=30)
+    np.testing.assert_array_equal(got.perm[:, :15].numpy(),
+                                  np.tile(np.arange(1010, 1025), (2, 1)))
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("k", [0, 1, 2, "W+1"])
+@pytest.mark.parametrize("width", [1, 30])
+def test_width_extremes(width, k, ascending):
+    # W = 1: two keys, each a tie set spanning three words; W = 30: the
+    # widest key the reference packs, with some duplicates
+    rng = np.random.default_rng(width)
+    x = rng.integers(0, 1 << width, (2, 70)).astype(np.uint32)
+    x[1, 40:50] = x[1, 3]
+    _check_oracle(x, width, bp.UNSIGNED, k=width + 1 if k == "W+1" else k,
+                  stop_after=None, ascending=ascending)
+
+
+@pytest.mark.parametrize("kind", ["all ties", "heavy duplicates"])
+@pytest.mark.parametrize("k", [0, 1, 2, "W+1"])
+@pytest.mark.parametrize("fmt", list(FMT_DATA))
+def test_ties_every_format(fmt, k, kind):
+    # tie sets of up to 70 lanes over three words; a stop point inside a
+    # tie set emits only its first lanes, in index order
+    gen, width = FMT_DATA[fmt]
+    rng = np.random.default_rng(len(kind) + width)
+    vals = gen(rng, (2, 3))
+    if kind == "all ties":
+        x = np.repeat(vals[:, :1], 70, axis=1)
+    else:
+        x = np.take_along_axis(vals, rng.integers(0, 3, (2, 70)), axis=1)
+    kk = width + 1 if k == "W+1" else k
+    asc = kk % 2 == 0
+    for stop in (None, 45):
+        _check_oracle(x, width, fmt, k=kk, stop_after=stop, ascending=asc)
 
 
 @pytest.mark.parametrize("ascending", [True, False])

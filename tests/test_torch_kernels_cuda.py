@@ -1,5 +1,5 @@
-"""The key-pack, radix top-k and pruned-matmul CUDA kernels against
-their plain PyTorch versions on the card.  The file imports no JAX, so it
+"""The fused TNS, key-pack, radix top-k and pruned-matmul CUDA kernels
+against their plain PyTorch versions on the card.  The file imports no JAX, so it
 runs on a machine with a card and no JAX:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core import bitplane as bp
-from repro_torch.kernels import bitplane_pack, masked_matmul, radix_topk, ref
+from repro_torch.kernels import (bitplane_pack, fused_tns, masked_matmul,
+                                 radix_topk, ref)
 
 
 def _keys(shape, seed):
@@ -23,6 +24,31 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1023, 1025, 4096])
+@pytest.mark.parametrize("k", [0, 1, 2, 17])
+def test_fused_tns_kernel_at_word_edges_on_card(cuda_device, n, k):
+    # float16 keys (W = 16) with an all-ties row and a heavy-duplicates
+    # row: rank ring and all 8 counters equal, top 6 and a full sort (top
+    # 300 past 1025 lanes)
+    x = np.random.default_rng(n + k).standard_normal((6, n)).astype(
+        np.float16)
+    x[1] = x[1, 0]
+    x[2] = np.round(x[2])
+    sign = bp.sign_plane(x, 16, "float")
+    planes, sign = bp.planes_from_numpy(bp.to_bitplanes(x, 16, "float"),
+                                        sign, device=cuda_device)
+    for stop in (6, None if n <= 1025 else 300):
+        launches = fused_tns.LAUNCHES
+        got = fused_tns.fused_tns_rank(planes, sign, k=k, fmt="float",
+                                       ascending=k % 2 == 0, stop_after=stop)
+        assert fused_tns.LAUNCHES == launches + 1
+        want = fused_tns.fused_tns_rank_ref(
+            planes, sign, k=k, fmt="float", ascending=k % 2 == 0,
+            stop_n=n if stop is None else min(stop, n))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
