@@ -18,9 +18,13 @@ order; any failure raises and exits non-zero:
    with W = 30 (its shared-memory fallback);
    key pack / unpack on float32, bfloat16 and int32 with +-0, +-inf and
    NaN; radix top-k over N in {1, 60, 160, 1024}, k in {1, 6, 32}, r in
-   {1, 3, 4, 8} with an all-ties row, and over rows wider than the
-   registers hold, N in {16385, 50304, 70000}, k in {1, 6, 50} (integer
-   outputs: equal exactly);
+   {1, 3, 4, 8} with an all-ties row, over wide rows, N in {16385, 50304,
+   70000}, k in {1, 6, 50}, and at the kernel's form edges: N 1024 / 1025
+   (warp form / radix select), the widest row staged in shared memory and
+   one past it, k = 1024 / 1025 (the select's sort capacity / the digit
+   rounds), rows whose tie set at the threshold straddles the k-th slot,
+   and r in {5, 6, 7}, whose low bits are never read (integer outputs:
+   equal exactly);
    the pruned matmul in float32 and bfloat16 at a ragged shape and with an
    all-false mask (tolerance: see ``mm_tolerance``);
 4. the port's paths at full size, each driven with the launch counts set
@@ -51,8 +55,11 @@ order; any failure raises and exits non-zero:
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
    operations also counted word by word, and over the int32 issue rate),
    the plain version's time and one PyTorch call computing the same
-   function where there is one; a breakdown of the ``topk()`` call; the top-k kernel on
-   vocabulary-wide rows (64, 50304), keys staged in shared memory;
+   function where there is one; the top-k kernel at the router's shape,
+   path e's (4096, 1024) k=32 and olmo-1b's vocabulary (64, 50304) k=50,
+   each beside ``torch.topk`` on int64-widened and on sign-flipped int32
+   keys and its bound, and at (4096, 1024) for k in {1, 32, 64}; a
+   breakdown of the ``topk()`` call;
 6. one JSON line describing each kernel, then the device line last.
 """
 from __future__ import annotations
@@ -93,10 +100,22 @@ FUSED_OPS_PER_WORD_COLUMN = 5
 FUSED_OPS_PER_WORD_EPISODE = 4
 # per lane and column: compare, then OR into the hit and keep flags
 DR_OPS_PER_LANE_COLUMN = 3
-# integer operations the top-k min-search needs per searched lane and
-# digit step: digit (shift, and), presence (shift, or), exclusion
-# (compare, clear)
-TOPK_OPS_PER_LANE_DIGIT = 6
+# integer operations of the top-k kernel.  Warp form (N <= 1024): per key,
+# its load (mask, the lane's not-emitted bit: shift, or) and its part in
+# the lane's first candidate (bit test, compare, two selects); per round,
+# two warp reductions, the key test and select, the slot and the held
+# pair, the winner's bit cleared; per key the winner's lane rescans (bit
+# test, compare, two selects)
+TOPK_WARP_OPS_PER_KEY = 7
+TOPK_WARP_OPS_PER_ROUND = 10
+TOPK_WARP_OPS_PER_RESCAN_KEY = 4
+# radix select (N > 1024): per key and histogram pass (prefix: shift,
+# compare; digit: shift, and; the counter's address, the count), per key
+# compacted (shift, two compares, or) and per compare-exchange of the
+# bitonic sort (64-bit compare, two selects)
+TOPK_SELECT_OPS_PER_KEY_PASS = 6
+TOPK_SELECT_OPS_PER_KEY_COMPACT = 4
+TOPK_OPS_PER_COMPARE_EXCHANGE = 4
 # olmo-1b (src/repro/configs/olmo_1b.py): MLP widths and vocabulary
 OLMO_D_MODEL, OLMO_D_FF, OLMO_VOCAB = 2048, 8192, 50304
 PRUNE_RATE = 0.3               # share of MLP input lanes pruned in situ
@@ -133,24 +152,67 @@ def mm_tolerance(x, w, keep, exact):
     return acc * (1 + unit) + unit * exact.abs()
 
 
-def searched_lane_digits(keys, k: int, r: int) -> int:
-    """Lanes still in the search, summed over every digit step of the k
-    rounds of the top-k min-search on (B, N) int32 key bits: the work this
-    data needs (a lane that has left a round's search is not visited)."""
-    import torch
-    lane = torch.arange(keys.shape[1], device=keys.device)
-    valid = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
-    total = 0
-    for _ in range(k):
-        m = valid
-        for shift in range(32 - r, -1, -r):
-            total += int(m.sum())
-            dig = (keys >> shift) & ((1 << r) - 1)
-            dmin = dig.masked_fill(~m, 1 << r).amin(dim=-1)
-            m = m & (dig == dmin[:, None])
-        chosen = m.to(torch.uint8).argmax(dim=-1)
-        valid = valid & (lane != chosen[:, None])
-    return total
+def topk_work_ops(keys, k: int, r: int) -> int:
+    """Integer operations the top-k kernel does on these (B, N) int32 key
+    bits: the warp form's per key and per round, the winner's lane
+    rescanning its ceil(N/32) keys; the radix select's per key and
+    histogram pass (the passes this data needs, counted by the select's
+    plain model), per key compacted and per compare-exchange of its sort.
+    The select's index-ordered sweep of ties at the threshold, which rows
+    of distinct random keys never need, is not counted."""
+    from repro_torch.kernels import radix_topk
+    from repro_torch.kernels.ref import topk_keys_select_ref
+    b, n = keys.shape
+    if n <= radix_topk.WARP_MAX_N:
+        return b * (n * TOPK_WARP_OPS_PER_KEY + k * (
+            TOPK_WARP_OPS_PER_ROUND
+            + TOPK_WARP_OPS_PER_RESCAN_KEY * -(-n // 32)))
+    stats = {}
+    topk_keys_select_ref(keys, k, r, stats)
+    m = 1 << (k - 1).bit_length()
+    lg = m.bit_length() - 1
+    exchanges = m // 2 * lg * (lg + 1) // 2
+    return (stats["passes"] * n * TOPK_SELECT_OPS_PER_KEY_PASS
+            + b * (n * TOPK_SELECT_OPS_PER_KEY_COMPACT
+                   + exchanges * TOPK_OPS_PER_COMPARE_EXCHANGE))
+
+
+def ptxas_entries(log: str):
+    """(kernel with its template argument, registers, spill stores, spill
+    loads, stack bytes) for each entry function in an ``nvcc -Xptxas -v``
+    log."""
+    out = []
+    for m in re.finditer(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+            r"(\d+) registers", log, flags=re.S):
+        name = re.search(r"\d+([a-z_]+kernel)(?:IL[a-z](\d+)E)?",
+                         m.group(1))
+        label = name.group(1) if name else m.group(1)
+        if name and name.group(2):
+            label += f"<{name.group(2)}>"
+        out.append((label, int(m.group(5)), int(m.group(3)),
+                    int(m.group(4)), int(m.group(2))))
+    return out
+
+
+def topk_edge_rows(rng, n: int, k: int):
+    """Six (n,) uint32 rows for the top-k kernel's edge cells: random keys;
+    all ties; ``% 7``; a tie set at the threshold that straddles the k-th
+    slot (k // 2 keys below it, up to 2k + 1 at it, spread over the row
+    across warp, thread and register boundaries); keys that differ only in
+    their low 4 bits; zeros at the ragged end."""
+    import numpy as np
+    a = rng.integers(0, 2**32, (6, n), dtype=np.uint32)
+    a[1] = 5
+    a[2] %= 7
+    a[3] = rng.integers(2**31, 2**32, n, dtype=np.uint32)
+    pos = rng.permutation(n)
+    a[3, pos[:k // 2]] = rng.integers(0, 1000, k // 2)
+    a[3, pos[k // 2:k // 2 + 2 * k + 1]] = 1000
+    a[4] = (rng.integers(0, 3, n) << 4 | rng.integers(0, 16, n)) + 0x7000
+    a[5, n - 9:] = 0
+    return a
 
 
 def main() -> int:
@@ -278,15 +340,14 @@ def main() -> int:
         print(f"ptxas {name}:", " | ".join(
             ln.strip() for ln in log.splitlines() if "Used" in ln
             or "spill" in ln), flush=True)
-    # the fused kernel's instantiations, by words of a column per thread
-    wpt = re.findall(r"fused_tns_kernelILi(\d+)E.*?\n\s*(\d+) bytes stack "
-                     r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
-                     r"loads\n.*?Used (\d+) registers",
-                     _build.build_logs.get("fused_tns", ""), flags=re.S)
-    print("fused_tns ptxas: " + "; ".join(
-        f"{w} word(s) a thread: {regs} registers, spills {st} B stored / "
-        f"{ld} B loaded, stack {fr} B" for w, fr, st, ld, regs in wpt),
-        flush=True)
+    # each instantiation of the redesigned kernels (the fused kernel's by
+    # words of a column a thread, the top-k kernel's by form and keys a
+    # lane)
+    for name in ("fused_tns", "radix_topk"):
+        print(f"{name} ptxas: " + "; ".join(
+            f"{kernel}: {regs} registers, spills {st} B stored / {ld} B "
+            f"loaded, stack {fr} B" for kernel, regs, st, ld, fr
+            in ptxas_entries(_build.build_logs.get(name, ""))), flush=True)
 
     # ---- 3. kernels vs plain versions on the card
     rng = np.random.default_rng(0)
@@ -400,7 +461,42 @@ def main() -> int:
                 same("radix_topk", got[0], want[0], f"N={n} k={k} r={r} keys")
                 same("radix_topk", got[1], want[1], f"N={n} k={k} r={r} idx")
                 cells += 1
-    print(f"radix_topk == plain on {cells} cells "
+    # the form edges: the warp form's widest row and one past it (the radix
+    # select), the widest row the select stages in shared memory and one
+    # past it (read from global memory), the select's largest k and one
+    # past it (the digit rounds, on two rows); every row set holds random
+    # keys, all ties, % 7, a tie set at the threshold straddling the k-th
+    # slot, keys differing only in their low 4 bits and a ragged run of
+    # zeros, under the r whose low bits are never read
+    limit = radix_topk.stage_limit()
+    cap = radix_topk.SORT_CAP
+    for n in (radix_topk.WARP_MAX_N, radix_topk.WARP_MAX_N + 1, limit,
+              limit + 1):
+        for k in (1, 32, cap, cap + 1):
+            if k > n:
+                continue
+            rows = topk_edge_rows(rng, n, k)
+            if k > cap:
+                rows = rows[[1, 3]]
+            keys = bp.keys_from_numpy(rows, device=dev)
+            for r in (4, 5, 6, 7) if k <= 32 else (4,):
+                got = radix_topk.topk_keys(keys, k, r)
+                want = topk_keys_ref(keys, k, r)
+                same("radix_topk", got[0], want[0],
+                     f"edge N={n} k={k} r={r} keys")
+                same("radix_topk", got[1], want[1],
+                     f"edge N={n} k={k} r={r} idx")
+                cells += 1
+    for n in (160, 4099):
+        keys = bp.keys_from_numpy(topk_edge_rows(rng, n, 6), device=dev)
+        for r in (5, 6, 7):
+            got = radix_topk.topk_keys(keys, 6, r)
+            want = topk_keys_ref(keys, 6, r)
+            same("radix_topk", got[0], want[0], f"N={n} k=6 r={r} keys")
+            same("radix_topk", got[1], want[1], f"N={n} k=6 r={r} idx")
+            cells += 1
+    print(f"radix_topk == plain on {cells} cells, staging limit {limit} "
+          f"lanes "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     tgen = torch.Generator(device=dev).manual_seed(0)
@@ -707,45 +803,59 @@ def main() -> int:
           f"{big_ms:.4f} ms = {big_rate / 1e12:.3f} TB/s, "
           f"{big_rate / HBM_BYTES_PER_S:.3f} of 3.35 TB/s", flush=True)
 
-    # radix top-k at the router's shape (inputs cold in L2)
+    # radix top-k at the main path's three shapes, inputs cold in L2: the
+    # router's (16384, 160) k=6 and path e's (4096, 1024) k=32 (the warp
+    # form), olmo-1b's vocabulary (64, 50304) k=50 (the radix select, keys
+    # staged in shared memory); beside each, torch.topk on the keys widened
+    # to int64 and on int32 keys with the sign bit flipped (the same order),
+    # and the bound: bytes (keys read once, 8 B a selected key written) and
+    # the kernel's integer operations on these keys
     inv = ~bitplane_pack.pack_keys(logits)
-    nxt = rotating(inv)
-    topk_ms = cuda_ms(lambda: radix_topk.topk_keys(nxt(), 6), 20)
-    topk_plain_ms = cuda_ms(lambda: topk_keys_ref(nxt(), 6), 3)
-    nxt_wide = rotating(inv.long() & 0xFFFFFFFF)
-    topk_lib_ms = cuda_ms(lambda: torch.topk(nxt_wide(), 6, largest=False),
-                          20)
-    # the same order in int32: unsigned keys with the sign bit flipped
-    nxt_signed = rotating(inv ^ -(1 << 31))
-    topk_i32_ms = cuda_ms(lambda: torch.topk(nxt_signed(), 6,
-                                             largest=False), 20)
-    del nxt, nxt_wide, nxt_signed
-    lane_digits = searched_lane_digits(inv, 6, 4)
-    kb = bound(4 * inv.numel() + 8 * inv.shape[0] * 6,
-               lane_digits * TOPK_OPS_PER_LANE_DIGIT)
     skeys = bp.keys_from_numpy(bp.sort_key(xs, 32, "float"), device=dev)
-    top32_ms = cuda_ms(lambda: radix_topk.topk_keys(skeys, 32), 5)
-    top32_lib_ms = cuda_ms(lambda: torch.topk(
-        skeys.long() & 0xFFFFFFFF, 32, largest=False), 5)
-    print(f"[{card}] topk_keys (16384, 160) k=6 r=4: {topk_ms:.4f} ms; "
-          f"bytes {kb[2]:.4f} ms, ops {kb[3]:.4f} ms ({lane_digits} searched "
-          f"lane-digits) -> bound {kb[0]:.4f} ms by {kb[1]}; plain "
-          f"{topk_plain_ms:.3f} ms; torch.topk(largest=False) on the "
-          f"widened keys {topk_lib_ms:.4f} ms, on sign-flipped int32 keys "
-          f"{topk_i32_ms:.4f} ms", flush=True)
-    print(f"[{card}] topk_keys (4096, 1024) k=32 r=4: {top32_ms:.4f} ms; "
-          f"torch.topk {top32_lib_ms:.4f} ms", flush=True)
-    # a row wider than the registers: top-50 over olmo-1b's vocabulary,
-    # keys staged in shared memory
     vinv = ~bitplane_pack.pack_keys(vocab)
     same("radix_topk", radix_topk.topk_keys(vinv, 50)[1],
          topk_keys_ref(vinv, 50)[1], "vocabulary top-50 idx")
-    vocab_ms = cuda_ms(lambda: radix_topk.topk_keys(vinv, 50), 5)
-    vwide = vinv.long() & 0xFFFFFFFF
-    vocab_lib_ms = cuda_ms(lambda: torch.topk(vwide, 50, largest=False), 5)
-    print(f"[{card}] topk_keys (64, {OLMO_VOCAB}) k=50 r=4: {vocab_ms:.4f} "
-          f"ms; torch.topk(largest=False) on the widened keys "
-          f"{vocab_lib_ms:.4f} ms", flush=True)
+    topk_times = {}
+    for what, keys_, kk in (("router", inv, 6), ("top-32", skeys, 32),
+                            ("vocabulary", vinv, 50)):
+        nxt = rotating(keys_)
+        ms = cuda_ms(lambda: radix_topk.topk_keys(nxt(), kk), 20)
+        plain_ms = (cuda_ms(lambda: topk_keys_ref(nxt(), kk), 3)
+                    if what == "router" else None)
+        del nxt
+        nxt = rotating(keys_.long() & 0xFFFFFFFF)
+        lib64_ms = cuda_ms(lambda: torch.topk(nxt(), kk, largest=False), 20)
+        del nxt
+        nxt = rotating(keys_ ^ -(1 << 31))
+        lib32_ms = cuda_ms(lambda: torch.topk(nxt(), kk, largest=False), 20)
+        del nxt
+        ops = topk_work_ops(keys_, kk, 4)
+        b_ = bound(4 * keys_.numel() + 8 * keys_.shape[0] * kk, ops)
+        topk_times[what] = (ms, plain_ms, lib64_ms, lib32_ms, b_)
+        print(f"[{card}] topk_keys {tuple(keys_.shape)} k={kk} r=4: "
+              f"{ms:.4f} ms; bytes {b_[2]:.4f} ms "
+              f"({4 * keys_.numel() + 8 * keys_.shape[0] * kk} B), ops "
+              f"{b_[3]:.4f} ms ({ops} integer ops) -> bound {b_[0]:.4f} ms "
+              f"by {b_[1]}"
+              + (f"; plain {plain_ms:.3f} ms" if plain_ms is not None else "")
+              + f"; torch.topk(largest=False) on the widened keys "
+              f"{lib64_ms:.4f} ms, on sign-flipped int32 keys "
+              f"{lib32_ms:.4f} ms", flush=True)
+    topk_ms, topk_plain_ms, topk_lib_ms, _, kb = topk_times["router"]
+    top32_ms = topk_times["top-32"][0]
+    # the warp form's cost a round: path e's keys at k = 1, 32 and 64
+    by_k = {}
+    nxt, nxt_signed = rotating(skeys), rotating(skeys ^ -(1 << 31))
+    for kk in (1, 32, 64):
+        by_k[kk] = (cuda_ms(lambda: radix_topk.topk_keys(nxt(), kk), 20),
+                    cuda_ms(lambda: torch.topk(nxt_signed(), kk,
+                                               largest=False), 20))
+    del nxt, nxt_signed
+    print(f"[{card}] topk_keys (4096, 1024) r=4 by k: " + ", ".join(
+        f"k={kk} {ms:.4f} ms (torch.topk on int32 keys {lib:.4f} ms)"
+        for kk, (ms, lib) in by_k.items())
+        + f"; {(by_k[64][0] - by_k[1][0]) / 63 * 1e3:.3f} us a round",
+        flush=True)
 
     # the whole topk() call: host clock, its steps' device times, and the
     # device's busy share from the profiler

@@ -1,11 +1,15 @@
 """Fused comparison-free top-k (the MoE-router hot spot): the k smallest
-uint32 keys per row, emitted ascending with first-tie indices, by k
-rounds of the paper's min-search over radix-2^r digit planes.
+uint32 keys per row, emitted ascending with first-tie indices, as k
+rounds of the paper's min-search over radix-2^r digit planes find them.
 
 The CUDA kernel ``csrc/radix_topk.cu`` replaces the Pallas kernel
 ``repro.kernels.radix_topk._topk_kernel``; its plain version is
-:func:`repro_torch.kernels.ref.topk_keys_ref`.  Keys are int32 tensors
-holding the uint32 key bits (:mod:`repro_torch.core.bitplane`).
+:func:`repro_torch.kernels.ref.topk_keys_ref`.  The kernel computes the
+same function by a warp argmin a round on rows of up to ``WARP_MAX_N``
+lanes and by a radix select beyond (``k <= SORT_CAP``; larger k takes the
+digit rounds); :func:`repro_torch.kernels.ref.topk_keys_select_ref`
+models the radix select on the host.  Keys are int32 tensors holding the
+uint32 key bits (:mod:`repro_torch.core.bitplane`).
 """
 from __future__ import annotations
 
@@ -22,6 +26,10 @@ from repro_torch.kernels.ref import topk_keys_ref
 LAUNCHES = 0
 
 KEY_BITS = 32
+# the kernel's form switch: one warp a row up to WARP_MAX_N lanes; a
+# radix select beyond it for k up to SORT_CAP, digit rounds for larger k
+WARP_MAX_N = 1024
+SORT_CAP = 1024
 
 
 @functools.cache
@@ -32,7 +40,20 @@ def _lib() -> ctypes.CDLL:
     lib.radix_topk_launch.restype = ctypes.c_int
     lib.radix_topk_error_string.argtypes = [ctypes.c_int]
     lib.radix_topk_error_string.restype = ctypes.c_char_p
+    lib.radix_topk_stage_limit.argtypes = []
+    lib.radix_topk_stage_limit.restype = ctypes.c_int
     return lib
+
+
+def stage_limit(device=None) -> int:
+    """The widest row whose keys the radix select stages in shared memory
+    on ``device`` (the current CUDA device by default); wider rows are read
+    from global memory."""
+    with torch.cuda.device(device):
+        limit = _lib().radix_topk_stage_limit()
+    if limit < 0:
+        raise RuntimeError("radix_topk: cannot read the shared-memory limit")
+    return limit
 
 
 def _launch(keys: torch.Tensor, k: int, r: int):

@@ -5,6 +5,8 @@ fused TNS kernel's plain version lives beside its wrapper in
 uint32 key bits (:mod:`repro_torch.core.bitplane`)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import bitplane as bp
@@ -21,6 +23,53 @@ def topk_keys_ref(keys: torch.Tensor, k: int, r: int = 4):
     do; for every other ``r`` the keys are those of
     :func:`repro_torch.core.radix_select.extract_topk`."""
     return rs.min_search_rounds(keys, k, r, 32)
+
+
+def topk_keys_select_ref(keys: torch.Tensor, k: int, r: int = 4,
+                         stats: Optional[dict] = None):
+    """The same (min keys, indices) as :func:`topk_keys_ref`, by the radix
+    select that the CUDA kernel runs on rows past its warp form, step for
+    step on each row: keys masked to the bits the digit walk reads; 8-bit
+    histogram passes, MSB first, over the keys whose higher digits equal
+    the prefix found so far, until the count at the prefix is exactly what
+    is still needed or the last digit is read; every key below the prefix
+    and the first ``k - c_less`` keys at it in index order; a sort of the
+    (key, index) pairs.  ``stats``, if given, gains ``passes``, the
+    histogram passes summed over the rows."""
+    read_mask = ~((1 << (32 % r)) - 1) & 0xFFFFFFFF
+    lane = torch.arange(keys.shape[1], device=keys.device)
+    out_key, out_idx, passes = [], [], 0
+    for row in (keys.long() & read_mask).unbind(0):
+        prefix, need, c_less = 0, k, 0
+        for shift in (24, 16, 8, 0):
+            active = (torch.ones_like(row, dtype=torch.bool) if shift == 24
+                      else (row >> (shift + 8)) == prefix)
+            hist = torch.bincount((row[active] >> shift) & 255, minlength=256)
+            incl = torch.cumsum(hist, 0)
+            digit = int(torch.searchsorted(incl, need))   # incl >= need
+            below = int(incl[digit] - hist[digit])
+            prefix = (prefix << 8) | digit
+            c_less += below
+            need -= below
+            at = int(hist[digit])
+            passes += 1
+            if at == need:
+                break
+        hi = row >> shift
+        at_prefix = hi == prefix
+        take = (hi < prefix) | (
+            at_prefix if at == need
+            else at_prefix & (torch.cumsum(at_prefix, 0) <= need))
+        # the (key << 32 | index) words in unsigned order: the taken lanes
+        # ascend, so a stable sort by key orders equal keys by index
+        kept, order = torch.sort(row[take], stable=True)
+        out_key.append(kept)
+        out_idx.append(lane[take][order])
+    if stats is not None:
+        stats["passes"] = stats.get("passes", 0) + passes
+    mk = torch.stack(out_key)
+    mk = mk - ((mk >> 31) << 32)                 # unsigned -> int32 bits
+    return mk.to(torch.int32), torch.stack(out_idx).to(torch.int32)
 
 
 def min_search_ref(planes: torch.Tensor, ascending: bool = True):

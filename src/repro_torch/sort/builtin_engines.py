@@ -120,8 +120,9 @@ def _radix(x, *, width, fmt, k, ascending, level_bits, stop_after, device,
 
 @register("fused-topk", mode="throughput", supports_stop_after=True,
           supports_batch=True,
-          description="Fused min-search kernel: the k smallest emitted in "
-                      "order by iterated radix-2^4 digit walks (CUDA)")
+          description="Fused top-k kernel: the k smallest emitted in order, "
+                      "as iterated radix-2^4 min-searches find them (CUDA "
+                      "warp argmin)")
 def _fused_topk(x, *, width, fmt, k, ascending, level_bits, stop_after,
                 device):
     keys = _unsigned_keys(x, width, fmt, ascending).astype(np.uint32)

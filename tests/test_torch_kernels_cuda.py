@@ -78,6 +78,64 @@ def test_topk_kernel_wide_rows_match_plain_version_on_card(cuda_device, n,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _edge_rows(n, k, seed):
+    """Random keys; all ties; ``% 7``; a tie set at the threshold that
+    straddles the k-th slot, spread over the row; keys that differ only in
+    their low 4 bits; zeros at the ragged end."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, (6, n), dtype=np.uint32)
+    a[1] = 5
+    a[2] %= 7
+    a[3] = rng.integers(2**31, 2**32, n, dtype=np.uint32)
+    pos = rng.permutation(n)
+    a[3, pos[:k // 2]] = rng.integers(0, 1000, k // 2)
+    a[3, pos[k // 2:k // 2 + 2 * k + 1]] = 1000
+    a[4] = (rng.integers(0, 3, n) << 4 | rng.integers(0, 16, n)) + 0x7000
+    a[5, n - 9:] = 0
+    return a
+
+
+# the kernel's form edges: the warp form's widest row and one past it, the
+# widest row staged in shared memory and one past it (read from global
+# memory), the select's largest k and one past it (the digit rounds)
+_TOPK_EDGE_CELLS = [(n, k) for n in (1024, 1025, "limit", "limit+1")
+                    for k in (1, 32, radix_topk.SORT_CAP,
+                              radix_topk.SORT_CAP + 1)
+                    if not (n == 1024 and k > 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", _TOPK_EDGE_CELLS,
+                         ids=[f"N{n}-k{k}" for n, k in _TOPK_EDGE_CELLS])
+def test_topk_kernel_at_its_form_edges_on_card(cuda_device, n, k):
+    if isinstance(n, str):
+        n = radix_topk.stage_limit(cuda_device) + (n == "limit+1")
+    rows = _edge_rows(n, k, seed=n + k)
+    if k > radix_topk.SORT_CAP:
+        rows = rows[[1, 3]]        # the digit rounds: k rounds a row
+    keys = bp.keys_from_numpy(rows, device=cuda_device)
+    launches = radix_topk.LAUNCHES
+    got = radix_topk.topk_keys(keys, k, r=4)
+    assert radix_topk.LAUNCHES == launches + 1
+    want = ref.topk_keys_ref(keys, k, 4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [160, 1024, 4099])
+@pytest.mark.parametrize("r", [5, 6, 7])
+def test_topk_kernel_reads_only_the_read_bits_on_card(cuda_device, n, r):
+    # r = 5, 6 never read bits 0-1 and r = 7 bits 0-3; equal to the plain
+    # version and to the select's plain model
+    keys = bp.keys_from_numpy(_edge_rows(n, 32, seed=n * r),
+                              device=cuda_device)
+    got = radix_topk.topk_keys(keys, 32, r=r)
+    for want in (ref.topk_keys_ref(keys, 32, r),
+                 ref.topk_keys_select_ref(keys, 32, r)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool((got[0] & ((1 << (32 % r)) - 1)).any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32])

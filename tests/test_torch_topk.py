@@ -131,6 +131,129 @@ def test_topk_keys_ref_is_the_reference_oracle_at_r4():
     _check_topk(keys, 6, 4, lambda j: jref.topk_keys_ref(j, 6))
 
 
+# ------------------------------------------- the radix select's plain model
+# ``topk_keys_select_ref`` models, step for step, the radix select that the
+# CUDA kernel runs on rows past its warp form; it must give what k rounds
+# of the reference's min-search give, on every row shape the select meets.
+
+_SELECT_R = (1, 3, 4, 5, 8)
+_SELECT_CELLS = [(n, k, r)
+                 for n in (1, 31, 32, 33, 160, 1024, 1025, 16385)
+                 for k in sorted({1, 6, 32, n}) if k <= n
+                 for r in _SELECT_R]
+
+
+def _select_rows(n, k, seed):
+    """Random keys; all ties; ``% 7``; a tie set at the threshold that
+    straddles the k-th slot (k // 2 keys below it, up to 2k + 1 at it,
+    spread over the row so that the set crosses warp, thread and register
+    boundaries); keys that differ only in their low 4 bits (unread for
+    r = 7, partly for r = 3, 5)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, (5, n), dtype=np.uint32)
+    a[1] = 0x9E3779B9
+    a[2] %= 7
+    a[3] = rng.integers(2**31, 2**32, n, dtype=np.uint32)
+    pos = rng.permutation(n)
+    a[3, pos[:k // 2]] = rng.integers(0, 1000, k // 2)
+    a[3, pos[k // 2:k // 2 + 2 * k + 1]] = 1000
+    a[4] = (rng.integers(0, 3, n) << 4 | rng.integers(0, 16, n)) + 0x7000
+    return a
+
+
+def _stable_order(keys, r):
+    """(masked keys, indices) of a stable sort: what k rounds of min-search
+    emit at k = N."""
+    mask = ~((1 << (32 % r)) - 1) & 0xFFFFFFFF
+    wide, idx = torch.sort(keys.long() & mask, dim=1, stable=True)
+    return (wide - ((wide >> 31) << 32)).to(torch.int32), idx.to(torch.int32)
+
+
+@pytest.mark.parametrize("n,k,r", _SELECT_CELLS,
+                         ids=[f"N{n}-k{k}-r{r}" for n, k, r in _SELECT_CELLS])
+def test_topk_keys_select_ref_matches_min_search(n, k, r):
+    keys = bp.keys_from_numpy(_select_rows(n, k, seed=n * 7 + k + r),
+                              device="cpu")
+    got = ref.topk_keys_select_ref(keys, k, r)
+    assert got[0].dtype == got[1].dtype == torch.int32
+    if k == n and n > 160:
+        # k rounds of the min-search over a row are its stable sort; their
+        # first 32 are held to the min-search itself
+        want = _stable_order(keys, r)
+        head = ref.topk_keys_ref(keys, 32, r)
+        assert torch.equal(got[0][:, :32], head[0])
+        assert torch.equal(got[1][:, :32], head[1])
+    else:
+        want = ref.topk_keys_ref(keys, k, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the JAX kernel in interpret mode unrolls k * (32 / r) * 2^r reductions,
+# so it is run at k <= 6 over every N and every r that it takes; at r = 8
+# its own min-search stands in, as in the test above
+_SELECT_JAX_CELLS = [(1, 1, 3), (31, 6, 1), (32, 6, 5), (33, 6, 4),
+                     (160, 6, 3), (1024, 1, 5), (1025, 6, 4), (1025, 1, 1),
+                     (16385, 1, 3), (16385, 6, 1)]
+_SELECT_R8_CELLS = [(1, 1), (32, 32), (160, 160), (1024, 6), (1025, 32),
+                    (16385, 6)]
+
+
+@pytest.mark.parametrize("n,k,r", _SELECT_JAX_CELLS,
+                         ids=[f"N{n}-k{k}-r{r}" for n, k, r in
+                              _SELECT_JAX_CELLS])
+def test_topk_keys_select_ref_matches_kernel(n, k, r):
+    a = _select_rows(n, k, seed=n + k * r)
+    jk, ji = jrt.topk_keys(jnp.asarray(a), k, r=r, interpret=True)
+    tk, ti = ref.topk_keys_select_ref(bp.keys_from_numpy(a, device="cpu"),
+                                      k, r)
+    np.testing.assert_array_equal(tk.numpy(), _bits(jk))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("n,k", _SELECT_R8_CELLS,
+                         ids=[f"N{n}-k{k}" for n, k in _SELECT_R8_CELLS])
+def test_topk_keys_select_ref_r8_matches_reference_min_search(n, k):
+    a = _select_rows(n, k, seed=n + k)
+    jk, ji = jrs.extract_topk(jnp.asarray(a), k, r=8)
+    tk, ti = ref.topk_keys_select_ref(bp.keys_from_numpy(a, device="cpu"),
+                                      k, 8)
+    np.testing.assert_array_equal(tk.numpy(), _bits(jk))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("r,want_idx,want_keys", [
+    (3, [4, 0, 1], [0x0FFC, 0x1000, 0x1000]),
+    (7, [4, 0, 1], [0x0FF0, 0x1000, 0x1000]),
+    (4, [4, 1, 2], [0x0FFF, 0x1000, 0x1002]),
+])
+def test_topk_keys_select_ref_reads_only_the_read_bits(r, want_idx,
+                                                       want_keys):
+    # r = 3 never reads bits 0-1 and r = 7 bits 0-3: keys equal above them
+    # tie (the first index wins) and are emitted with those bits clear
+    keys = bp.keys_from_numpy(
+        np.array([[0x1003, 0x1000, 0x1002, 0x2001, 0x0FFF]], np.uint32),
+        device="cpu")
+    tk, ti = ref.topk_keys_select_ref(keys, 3, r)
+    assert ti[0].tolist() == want_idx and tk[0].tolist() == want_keys
+    assert torch.equal(tk, ref.topk_keys_ref(keys, 3, r)[0])
+
+
+def test_topk_keys_select_ref_passes_stop_once_the_prefix_is_taken():
+    # distinct top bytes: the first pass finds the k-th key's bin holding
+    # only it; all ties: every digit is read, then the first k in index
+    # order
+    distinct = torch.arange(256, dtype=torch.int64)[None] << 24
+    stats = {}
+    _, idx = ref.topk_keys_select_ref(
+        torch.flip(distinct, [1]).to(torch.int32), 5, 4, stats)
+    assert stats["passes"] == 1 and idx[0].tolist() == [
+        255, 254, 253, 252, 251]
+    stats = {}
+    _, idx = ref.topk_keys_select_ref(
+        torch.full((2, 40), 7, dtype=torch.int32), 6, 4, stats)
+    assert stats["passes"] == 8 and idx.tolist() == [list(range(6))] * 2
+
+
 # -------------------------------------------------------- key packing
 
 
