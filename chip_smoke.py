@@ -25,8 +25,16 @@ order; any failure raises and exits non-zero:
    rounds), rows whose tie set at the threshold straddles the k-th slot,
    and r in {5, 6, 7}, whose low bits are never read (integer outputs:
    equal exactly);
+   the digit read over N in {1, 31, 32, 33, 1024, 2048, 2049, 65536} (the
+   warp form up to 2048 lanes, the block form past it), W in {1, 16, 32},
+   both directions, planes holding bytes 2 and 255 (equal exactly);
    the pruned matmul in float32 and bfloat16 at a ragged shape and with an
-   all-false mask (tolerance: see ``mm_tolerance``);
+   all-false mask, and at the edges of its wgmma form: M in {1, 64, 65,
+   130} x N in {8, 120, 256, 264} x K in {8, 64, 72, 2056}, all-pruned and
+   all-kept masks, NaN and infinity in pruned lanes of x and pruned rows
+   of w (NaN where the plain version has it), a wmma-form cell (K = 257)
+   and K = 0, each form's launch count checked (tolerance: see
+   ``mm_tolerance``);
 4. the port's paths at full size, each driven with the launch counts set
    to 0 just before and read just after:
    a. ``sort(x, engine="fused-tns", k=2)`` on float16 (4096, 1024) —
@@ -36,7 +44,8 @@ order; any failure raises and exits non-zero:
    b. a large-bank top-m call, (512, 16384) with ``stop_after=64``, whose
       keys need 64 KiB of shared memory per block;
    c. the useful-DR check path: ``min_search`` over the (4096, 16, 1024)
-      planes against the fused kernel's one-episode mixed-read count;
+      planes against the fused kernel's one-episode mixed-read count,
+      through the digit read's warp form;
    d. the MoE router: ``topk(logits, 6, engine="fused-topk")`` on float32
       (16384, 160) (deepseek-v2: 160 routed experts, top-6, 16384
       tokens) and top-4 of bfloat16 (16384, 60) (qwen2-moe), indices held
@@ -47,7 +56,7 @@ order; any failure raises and exits non-zero:
    f. ``sort(x, engine="radix")`` on the same x (plain torch, no kernel);
    g. ``pruned_matmul`` at olmo-1b's MLP (bfloat16 x (4096, 2048), w
       (2048, 8192)), the 30 % of input lanes with the smallest max |w|
-      dropped by ``prune_mask``;
+      dropped by ``prune_mask``, through the matmul's wgmma form;
    h. ``topk_mask(logits, 50)`` over olmo-1b's vocabulary, (64, 50304)
       (plain torch);
 5. times (CUDA events after warm-up) beside the least time the card could
@@ -59,7 +68,11 @@ order; any failure raises and exits non-zero:
    path e's (4096, 1024) k=32 and olmo-1b's vocabulary (64, 50304) k=50,
    each beside ``torch.topk`` on int64-widened and on sign-flipped int32
    keys and its bound, and at (4096, 1024) for k in {1, 32, 64}; a
-   breakdown of the ``topk()`` call;
+   breakdown of the ``topk()`` call; the pruned matmul and the digit read
+   beside their times before their redesign (``PERF.md``), the matmul with
+   inputs cold in L2, also with every lane kept (the mask's cost), and the
+   host time of a call of each matmul form (the wgmma form encodes two
+   TMA descriptors a call);
 6. one JSON line describing each kernel, then the device line last.
 """
 from __future__ import annotations
@@ -118,6 +131,11 @@ TOPK_SELECT_OPS_PER_KEY_COMPACT = 4
 TOPK_OPS_PER_COMPARE_EXCHANGE = 4
 # olmo-1b (src/repro/configs/olmo_1b.py): MLP widths and vocabulary
 OLMO_D_MODEL, OLMO_D_FF, OLMO_VOCAB = 2048, 8192, 50304
+# card times before this slice's redesigns (PERF.md, kernel table: NVIDIA
+# H100 80GB HBM3, 700.00 W): the pruned matmul at olmo-1b's MLP (its WMMA
+# kernel, now the wmma form) and the digit read at (4096, 16, 1024) (its
+# one-block-a-row kernel, now the block form)
+MATMUL_MS_BEFORE, DIGIT_READ_MS_BEFORE = 2.0123, 0.0709
 PRUNE_RATE = 0.3               # share of MLP input lanes pruned in situ
 FORMATS = {"unsigned": 8, "twos": 8, "signmag": 16, "float": 16}
 
@@ -186,11 +204,11 @@ def ptxas_entries(log: str):
             r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
             r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
             r"(\d+) registers", log, flags=re.S):
-        name = re.search(r"\d+([a-z_]+kernel)(?:IL[a-z](\d+)E)?",
-                         m.group(1))
+        name = re.search(r"\d+([a-z_]+(?:\d+_)?kernel)"
+                         r"(?:IL[a-z](\d+)E(?:L[a-z](\d+)E)?)?", m.group(1))
         label = name.group(1) if name else m.group(1)
         if name and name.group(2):
-            label += f"<{name.group(2)}>"
+            label += "<" + ", ".join(a for a in name.group(2, 3) if a) + ">"
         out.append((label, int(m.group(5)), int(m.group(3)),
                     int(m.group(4)), int(m.group(2))))
     return out
@@ -246,6 +264,8 @@ def main() -> int:
     def zero_counts():
         for mod in mods.values():
             mod.LAUNCHES = 0
+            for form in getattr(mod, "FORM_LAUNCHES", ()):
+                mod.FORM_LAUNCHES[form] = 0
 
     def counts():
         return {name: mod.LAUNCHES for name, mod in mods.items()}
@@ -298,6 +318,41 @@ def main() -> int:
         err["masked_matmul"] = max(err["masked_matmul"], diff)
         return got
 
+    def mm_form(x, w, keep, what, form):
+        """``mm_pair`` through the named form of the matmul kernel."""
+        expect(masked_matmul.form_for(x, w) == form,
+               f"pruned_matmul {what}: not the {form} form")
+        before = masked_matmul.FORM_LAUNCHES[form]
+        got = mm_pair(x, w, keep, what)
+        expect(masked_matmul.FORM_LAUNCHES[form] == before + 1,
+               f"pruned_matmul {what}: the {form} form did not launch")
+        return got
+
+    def mm_nan_pair(x, w, keep, what):
+        """Kernel and plain version where pruned lanes of x and pruned rows
+        of w hold NaN and infinity: NaN in the same places as the plain
+        version and the float64 product, the rest within tolerance of the
+        product of the finite inputs."""
+        got = masked_matmul.pruned_matmul(x, w, keep)
+        want = pruned_matmul_ref(x, w, keep)
+        exact = (x.double() * keep.double()) @ w.double()
+        nan = torch.isnan(exact)
+        expect(bool(nan.any()) and not bool(nan.all()),
+               f"pruned_matmul {what}: the cell makes no NaN")
+        for name, y in (("kernel", got), ("plain version", want)):
+            expect(torch.equal(torch.isnan(y), nan), f"pruned_matmul "
+                   f"{what}: {name}'s NaN positions differ from the float64 "
+                   "product's")
+        x0 = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+        w0 = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+        exact0 = (x0.double() * keep.double()) @ w0.double()
+        tol = mm_tolerance(x0, w0, keep, exact0)
+        for name, y in (("kernel", got), ("plain version", want)):
+            over = ((y.double() - exact0).abs() - tol)[~nan].max().item()
+            expect(over <= 0, f"pruned_matmul {what}: {name} exceeds the "
+                   f"tolerance by {over} off the NaN entries")
+        return got
+
     def cuda_ms(fn, reps):
         """Device time of one call of ``fn``: CUDA events around ``reps``
         calls queued behind a sleep kernel, so that the host's cost of
@@ -343,11 +398,15 @@ def main() -> int:
     # each instantiation of the redesigned kernels (the fused kernel's by
     # words of a column a thread, the top-k kernel's by form and keys a
     # lane)
-    for name in ("fused_tns", "radix_topk"):
+    for name in ("fused_tns", "radix_topk", "masked_matmul", "digit_read"):
         print(f"{name} ptxas: " + "; ".join(
             f"{kernel}: {regs} registers, spills {st} B stored / {ld} B "
             f"loaded, stack {fr} B" for kernel, regs, st, ld, fr
             in ptxas_entries(_build.build_logs.get(name, ""))), flush=True)
+    for name, log in sorted(_build.build_logs.items()):
+        for ln in log.splitlines():
+            if "Performance Loss" in ln or "warning" in ln.lower():
+                print(f"{name} build note: {ln.strip()}", flush=True)
 
     # ---- 3. kernels vs plain versions on the card
     rng = np.random.default_rng(0)
@@ -411,6 +470,35 @@ def main() -> int:
     expect(torch.equal(one_ep.useful_drs, digit_read.min_search(dr_planes)[1]),
            "fused useful DRs at stop_after=1 != min_search's")
     print("digit_read == plain; fused useful DRs == min_search's", flush=True)
+    # the digit read at its form edges: the warp form up to 2048 lanes
+    # (a lane's 16-byte chunks: 1, 2 and 4 of them), the block form past
+    # it; bytes 2 and 255 mean "not the excluded digit" to both, as to the
+    # reference kernel
+    t0 = time.perf_counter()
+    cells = 0
+    for n in (1, 31, 32, 33, 1024, 2048, 2049, 65536):
+        for wd in (1, 16, 32):
+            raw = rng.integers(0, 2, (4, wd, n)).astype(np.uint8)
+            odd = rng.random(raw.shape)
+            raw[odd < 0.03] = 2
+            raw[odd > 0.97] = 255
+            raw[1] = raw[1, :, :1]                # an all-ties row
+            pl = torch.from_numpy(raw).to(dev)
+            form = digit_read.form_for(wd, n)
+            for asc in (True, False):
+                before = digit_read.FORM_LAUNCHES[form]
+                mask, drs = digit_read.min_search(pl, asc)
+                expect(digit_read.FORM_LAUNCHES[form] == before + 1,
+                       f"digit_read N={n} W={wd}: the {form} form did not "
+                       "launch")
+                rmask, rdrs = min_search_ref(pl, asc)
+                same("digit_read", mask, rmask,
+                     f"N={n} W={wd} asc={asc} mask")
+                same("digit_read", drs, rdrs, f"N={n} W={wd} asc={asc} DRs")
+                cells += 1
+    print(f"digit_read == plain on {cells} edge cells (bytes 2 and 255; "
+          f"forms {dict(digit_read.FORM_LAUNCHES)}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     special = torch.tensor([float("-inf"), -3.5, -0.0, 0.0, 1e-9, 7.25,
@@ -499,16 +587,62 @@ def main() -> int:
           f"lanes "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
     tgen = torch.Generator(device=dev).manual_seed(0)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, form in ((torch.float32, "ffma"), (torch.bfloat16, "wmma")):
         x = torch.randn(130, 257, generator=tgen, device=dev).to(dt)
         w = torch.randn(257, 120, generator=tgen, device=dev).to(dt)
         keep = torch.rand(257, generator=tgen, device=dev) > 0.3
-        mm_pair(x, w, keep, f"{dt} (130, 257, 120)")
-        none = mm_pair(x, w, torch.zeros_like(keep), f"{dt} all pruned")
+        mm_form(x, w, keep, f"{dt} (130, 257, 120)", form)
+        none = mm_form(x, w, torch.zeros_like(keep), f"{dt} all pruned",
+                       form)
         expect(not none.abs().max().item(), "all-false mask: output != 0")
+    # K = 0, which no tensor map can describe: the wmma form, zeros
+    zk = mm_form(torch.ones(5, 0, dtype=torch.bfloat16, device=dev),
+                 torch.ones(0, 16, dtype=torch.bfloat16, device=dev),
+                 torch.ones(0, dtype=torch.bool, device=dev), "K=0", "wmma")
+    expect(zk.shape == (5, 16) and not zk.abs().max().item(),
+           "K=0: output != 0")
+    # the wgmma form's edges: one row, a tile's 64-row half and one past
+    # it, a ragged pair of tiles; N of one 16-byte chunk, ragged, one tile,
+    # one past it; K of one chunk, one step, one step and a chunk, 32 steps
+    # and a chunk; each with a random mask, all pruned and all kept
+    cells = 0
+    for m in (1, 64, 65, 130):
+        for n in (8, 120, 256, 264):
+            for kd in (8, 64, 72, 2056):
+                x = torch.randn(m, kd, generator=tgen, device=dev).to(
+                    torch.bfloat16)
+                w = torch.randn(kd, n, generator=tgen, device=dev).to(
+                    torch.bfloat16)
+                keep = torch.rand(kd, generator=tgen, device=dev) > 0.3
+                cell = f"bf16 ({m}, {kd}, {n})"
+                mm_form(x, w, keep, cell, "wgmma")
+                none = mm_form(x, w, torch.zeros_like(keep),
+                               f"{cell} all pruned", "wgmma")
+                expect(not none.abs().max().item(),
+                       f"{cell} all pruned: output != 0")
+                mm_form(x, w, torch.ones_like(keep), f"{cell} all kept",
+                        "wgmma")
+                cells += 3
+    # NaN and infinity in pruned lanes of x (rows 3 and 70) and pruned rows
+    # of w (columns 5 and 200): NaN in those rows and columns only
+    x = torch.randn(130, 2056, generator=tgen, device=dev).to(torch.bfloat16)
+    w = torch.randn(2056, 264, generator=tgen, device=dev).to(torch.bfloat16)
+    keep = torch.rand(2056, generator=tgen, device=dev) > 0.3
+    pruned = torch.nonzero(~keep).flatten()
+    x[3, pruned[0]], x[70, pruned[5]] = float("nan"), float("inf")
+    w[pruned[1], 5], w[pruned[7], 200] = float("-inf"), float("nan")
+    expect(masked_matmul.form_for(x, w) == "wgmma", "NaN cell form")
+    before = masked_matmul.FORM_LAUNCHES["wgmma"]
+    mm_nan_pair(x, w, keep, "NaN / inf in pruned lanes")
+    expect(masked_matmul.FORM_LAUNCHES["wgmma"] == before + 1,
+           "NaN cell: the wgmma form did not launch")
     print(f"pruned_matmul within tolerance of the float64 product, as is "
-          f"the plain version (float32, bfloat16; ragged; all pruned); "
+          f"the plain version: float32 (ffma) and bfloat16 (wmma) ragged "
+          f"and all pruned, K=0 (wmma), {cells} wgmma edge cells, NaN / inf "
+          f"in pruned lanes (NaN where the plain version has it); forms "
+          f"{dict(masked_matmul.FORM_LAUNCHES)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 4a. main path: sort() at full size
@@ -573,14 +707,18 @@ def main() -> int:
     one_ep = fused_tns.fused_tns_planes(planes, None, k=2, fmt="unsigned",
                                         stop_after=1)
     dr_launches = counts()
+    dr_forms = dict(digit_read.FORM_LAUNCHES)
     expect(dr_launches["digit_read"] > 0, "check path did not launch "
            "digit_read")
+    expect(dr_forms["warp"] > 0, "check path did not run the digit read's "
+           "warp form")
     expect(torch.equal(one_ep.useful_drs, dr_full),
            "full size: fused useful DRs != min_search's")
     rmask, rdrs = min_search_ref(planes)
     same("digit_read", mask, rmask, "full size mask")
     same("digit_read", dr_full, rdrs, "full size useful DRs")
-    print(f"check path (4096, 16, 1024): launches {dr_launches}; "
+    print(f"check path (4096, 16, 1024): launches {dr_launches}, digit read "
+          f"forms {dr_forms}; "
           "min_search == plain == fused one-episode count", flush=True)
 
     # ---- 4d. the MoE router: topk() through the pack and top-k kernels
@@ -658,13 +796,17 @@ def main() -> int:
     yg = ops.pruned_matmul(xg, wg, keep_g)
     torch.cuda.synchronize()
     mm_launches = counts()
+    mm_forms = dict(masked_matmul.FORM_LAUNCHES)
     expect(mm_launches["masked_matmul"] > 0, "pruned_matmul did not launch "
            "its kernel")
+    expect(mm_forms["wgmma"] > 0, "pruned_matmul did not run the wgmma "
+           "form")
     expect(int(keep_g.sum()) == OLMO_D_MODEL - n_prune, "keep mask size")
     yk = mm_pair(xg, wg, keep_g, "olmo-1b MLP")
     expect(torch.equal(yg, yk), "pruned_matmul not deterministic")
     print(f"pruned_matmul (4096, 2048) @ (2048, 8192) bf16, {n_prune} lanes "
-          f"pruned: launches {mm_launches}; kernel and plain within "
+          f"pruned: launches {mm_launches}, forms {mm_forms}; kernel and "
+          f"plain within "
           f"tolerance; max |kernel - plain| {err['masked_matmul']}",
           flush=True)
 
@@ -778,9 +920,10 @@ def main() -> int:
           + f" -> the least, {twb[0]:.4f} ms, bound by {twb[1]}; "
           f"torch.topk(64, largest=False) on the keys {topm_lib_ms:.4f} ms",
           flush=True)
-    print(f"[{card}] min_search (4096, 16, 1024): {dr_ms:.4f} ms; bound "
-          f"{db[0]:.4f} ms by {db[1]}; plain {dr_plain_ms:.3f} ms",
-          flush=True)
+    print(f"[{card}] min_search (4096, 16, 1024), warp form: {dr_ms:.4f} ms "
+          f"(before its redesign {DIGIT_READ_MS_BEFORE} ms, PERF.md); bound "
+          f"{db[0]:.4f} ms by {db[1]} ({db[0] / dr_ms:.3f} of it reached); "
+          f"plain {dr_plain_ms:.3f} ms", flush=True)
 
     # key pack at the router's shape (inputs cold in L2), and on 256 MiB
     # for its bandwidth
@@ -908,10 +1051,38 @@ def main() -> int:
         + f"; of which radix_sort_keys on the device keys {radix_dev_ms:.2f}"
         f" ms, the top-32 kernel {top32_ms:.4f} ms", flush=True)
 
-    # the pruned MLP product
-    mm_ms = cuda_ms(lambda: masked_matmul.pruned_matmul(xg, wg, keep_g), 10)
-    mm_plain_ms = cuda_ms(lambda: pruned_matmul_ref(xg, wg, keep_g), 5)
-    mm_lib_ms = cuda_ms(lambda: torch.matmul(xg * keep_g, wg), 10)
+    # the pruned MLP product, inputs cold in L2, and with every lane kept
+    # (the mask's cost: a step with no pruned lane skips it)
+    nx, nw = rotating(xg), rotating(wg)
+    mm_ms = cuda_ms(lambda: masked_matmul.pruned_matmul(nx(), nw(), keep_g),
+                    10)
+    all_kept = torch.ones_like(keep_g)
+    mm_kept_ms = cuda_ms(lambda: masked_matmul.pruned_matmul(
+        nx(), nw(), all_kept), 10)
+    mm_plain_ms = cuda_ms(lambda: pruned_matmul_ref(nx(), nw(), keep_g), 5)
+    mm_lib_ms = cuda_ms(lambda: torch.matmul(nx() * keep_g, nw()), 10)
+    del nx, nw
+
+    def host_us(fn, reps=200):
+        """Host time of one call (queued, not waited for), in us."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return host
+
+    # the host's cost of a call of each bfloat16 form at a small shape
+    # (the wgmma form encodes two TMA descriptors a call)
+    hx = torch.randn(64, 64, generator=tgen, device=dev).to(torch.bfloat16)
+    hw = torch.randn(64, 64, generator=tgen, device=dev).to(torch.bfloat16)
+    hk = torch.ones(64, dtype=torch.bool, device=dev)
+    hx60, hw60 = hx[:, :60].contiguous(), hw[:60].contiguous()
+    host_wgmma = host_us(lambda: masked_matmul.pruned_matmul(hx, hw, hk))
+    host_wmma = host_us(lambda: masked_matmul.pruned_matmul(hx60, hw60,
+                                                            hk[:60]))
     m_, k_, n_ = xg.shape[0], xg.shape[1], wg.shape[1]
     kept = int(keep_g.sum())
     mm_bytes = 2 * (m_ * k_ + k_ * n_ + m_ * n_) + k_
@@ -920,11 +1091,18 @@ def main() -> int:
     mb = (max(mm_by_bytes, mm_by_ops),
           "bytes" if mm_by_bytes >= mm_by_ops else "operations")
     print(f"[{card}] pruned_matmul (4096, 2048) @ (2048, 8192) bf16, "
-          f"{kept} lanes kept: {mm_ms:.4f} ms "
-          f"({2 * m_ * kept * n_ / (mm_ms * 1e-3) / 1e12:.1f} T useful "
-          f"op/s); bytes {mm_by_bytes:.4f} ms, ops {mm_by_ops:.4f} ms -> "
-          f"bound {mb[0]:.4f} ms by {mb[1]}; plain {mm_plain_ms:.4f} ms; "
-          f"torch.matmul(x * keep, w) {mm_lib_ms:.4f} ms", flush=True)
+          f"{kept} lanes kept, wgmma form, inputs cold in L2: {mm_ms:.4f} ms "
+          f"(before its redesign {MATMUL_MS_BEFORE} ms, PERF.md; "
+          f"{2 * m_ * kept * n_ / (mm_ms * 1e-3) / 1e12:.1f} T useful op/s, "
+          f"{2 * m_ * k_ * n_ / (mm_ms * 1e-3) / 1e12:.1f} T op/s over the "
+          f"full K); every lane kept {mm_kept_ms:.4f} ms; bytes "
+          f"{mm_by_bytes:.4f} ms, ops {mm_by_ops:.4f} ms -> bound "
+          f"{mb[0]:.4f} ms by {mb[1]} ({mb[0] / mm_ms:.3f} of it reached); "
+          f"plain {mm_plain_ms:.4f} ms; torch.matmul(x * keep, w) "
+          f"{mm_lib_ms:.4f} ms ({mm_ms / mm_lib_ms:.2f}x of it)", flush=True)
+    print(f"[{card}] pruned_matmul host time a call at (64, 64) @ (64, 64): "
+          f"wgmma form {host_wgmma:.1f} us, wmma form at K=60 "
+          f"{host_wmma:.1f} us", flush=True)
 
     # ---- 6. kernel line, then the device line
     kernels = [

@@ -5,7 +5,21 @@ x.
 
 The CUDA kernel ``csrc/masked_matmul.cu`` replaces the Pallas kernel
 ``repro.kernels.masked_matmul._mm_kernel``; its plain version is
-:func:`repro_torch.kernels.ref.pruned_matmul_ref`.
+:func:`repro_torch.kernels.ref.pruned_matmul_ref`.  The wrapper picks one
+of the kernel's three forms by dtype and shape (:func:`form_for`) and
+counts each launch under its form in ``FORM_LAUNCHES`` (beside the total,
+``LAUNCHES``):
+
+- ``wgmma``: bfloat16 with K > 0, K and N multiples of 8 and x and w
+  16-byte aligned (TMA's stride and alignment rules): TMA loads into a
+  shared-memory ring, two consumer warpgroups on ``wgmma``;
+- ``wmma``: every other bfloat16 shape, K = 0 included: 128 x 128 tiles
+  on ``mma.sync``;
+- ``ffma``: float32, on the CUDA cores (``wgmma`` has no float32 mode,
+  and TF32 would not meet the float32 tolerance).
+
+This is a choice by shape, not a fallback: a form that fails to build or
+launch raises.
 """
 from __future__ import annotations
 
@@ -20,8 +34,10 @@ from repro_torch.kernels.ref import pruned_matmul_ref
 # launches of the CUDA kernel in this process (a plain count: a run sets
 # it to 0 and reads it back to show which path went through the kernel)
 LAUNCHES = 0
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the same launches by form
+FORM_LAUNCHES = {"wgmma": 0, "wmma": 0, "ffma": 0}
+_FORM_CODE = {"ffma": 0, "wmma": 1, "wgmma": 2}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
@@ -35,22 +51,38 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def form_for(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel form that serves ``x @ w``."""
+    if x.dtype == torch.float32:
+        return "ffma"
+    k, n = w.shape
+    if k > 0 and k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and w.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "wmma"
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, keep: torch.Tensor):
     global LAUNCHES
     m, k = x.shape
     n = w.shape[1]
-    keep = keep.contiguous()       # bool: the 0/1 bytes the kernel reads
+    form = form_for(x, w)
+    # bool: the 0/1 bytes the kernel reads (the wgmma form two at a time)
+    keep = keep.contiguous()
+    if keep.data_ptr() % 16:
+        keep = keep.clone()
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         status = lib.masked_matmul_launch(
             x.data_ptr(), w.data_ptr(), keep.data_ptr(), y.data_ptr(),
-            m, k, n, _DTYPE_CODE[x.dtype],
+            m, k, n, _FORM_CODE[form],
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError("masked_matmul launch failed: "
                            + lib.masked_matmul_error_string(status).decode())
     LAUNCHES += 1
+    FORM_LAUNCHES[form] += 1
     return y
 
 
@@ -64,7 +96,7 @@ def pruned_matmul(x: torch.Tensor, w: torch.Tensor,
     for name, t in (("x", x), ("w", w), ("keep_mask", keep_mask)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"x and w must share a dtype, float32 or bfloat16; "
                         f"got {x.dtype} and {w.dtype}")
     if keep_mask.dtype != torch.bool:

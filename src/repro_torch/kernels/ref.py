@@ -74,14 +74,18 @@ def topk_keys_select_ref(keys: torch.Tensor, k: int, r: int = 4,
 
 def min_search_ref(planes: torch.Tensor, ascending: bool = True):
     """Plain version of :func:`repro_torch.kernels.digit_read.min_search`
-    on (B, W, N) uint8 planes: (mask (B, N) bool, useful DRs (B,) int32)."""
+    on (B, W, N) uint8 planes: (mask (B, N) bool, useful DRs (B,) int32).
+
+    It is the walk that ``repro.kernels.digit_read._dr_kernel`` runs, and
+    its counterpart is that kernel (``repro.kernels.digit_read.min_search``):
+    column by column, a lane is a hit where its byte equals the excluded
+    digit (1 ascending, 0 descending) and kept elsewhere; a read with both
+    hits and kept lanes among the survivors is mixed, counts as a useful
+    DR and leaves the kept lanes.  The mask is the survivor set.  On 0/1
+    planes it marks every element attaining the min (the max when
+    descending); on other bytes it follows the walk, not the planes read
+    as numbers, as the reference kernel does."""
     b, w, n = planes.shape
-    shifts = torch.arange(w - 1, -1, -1, dtype=torch.int64,
-                          device=planes.device)
-    keys = (planes.to(torch.int64) << shifts[None, :, None]).sum(dim=1)
-    target = keys.amin(dim=1) if ascending else keys.amax(dim=1)
-    mask = keys == target[:, None]
-    # useful DRs: walk the planes, count the mixed reads
     valid = torch.ones((b, n), dtype=torch.bool, device=planes.device)
     exc = 1 if ascending else 0
     useful = torch.zeros((b,), dtype=torch.int32, device=planes.device)
@@ -92,7 +96,7 @@ def min_search_ref(planes: torch.Tensor, ascending: bool = True):
         mixed = hit.any(dim=1) & keep.any(dim=1)
         valid = torch.where(mixed[:, None], keep, valid)
         useful = useful + mixed.to(torch.int32)
-    return mask, useful
+    return valid, useful
 
 
 def pack_keys_ref(x: torch.Tensor) -> torch.Tensor:

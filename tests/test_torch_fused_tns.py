@@ -212,6 +212,37 @@ def test_ties_every_format(fmt, k, kind):
         _check_oracle(x, width, fmt, k=kk, stop_after=stop, ascending=asc)
 
 
+@pytest.mark.parametrize("fmt", [bp.UNSIGNED, bp.FLOAT, bp.SIGNMAG])
+@pytest.mark.parametrize("k", [0, 2])
+def test_planes_with_bytes_outside_0_1(fmt, k):
+    # a plane byte (and a sign byte) counts as a 1 wherever it is not 0, in
+    # the reference kernel and in the port alike: bytes 2 and 255 among the
+    # planes and the sign plane, both directions, a full sort and a top-7
+    rng = np.random.default_rng(k + len(fmt))
+    planes = rng.integers(0, 2, (3, 8, 40)).astype(np.uint8)
+    odd = rng.random(planes.shape)
+    planes[odd < 0.1] = 2
+    planes[odd > 0.9] = 255
+    sign = None
+    if fmt != bp.UNSIGNED:
+        sign = rng.integers(0, 2, (3, 40)).astype(np.uint8)
+        sign[rng.random(sign.shape) < 0.2] = 255
+    p, s = bp.planes_from_numpy(planes, sign, device="cpu")
+    for ascending in (True, False):
+        for stop in (None, 7):
+            want = jft.fused_tns_planes(
+                jnp.asarray(planes),
+                None if sign is None else jnp.asarray(sign), k=k, fmt=fmt,
+                ascending=ascending, stop_after=stop, interpret=True)
+            got = fused_tns.fused_tns_planes(p, s, k=k, fmt=fmt,
+                                             ascending=ascending,
+                                             stop_after=stop)
+            for f in FIELDS:
+                np.testing.assert_array_equal(
+                    getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                    err_msg=f"{f} ascending={ascending} stop={stop}")
+
+
 @pytest.mark.parametrize("ascending", [True, False])
 @pytest.mark.parametrize("shape", [(3, 8, 5), (2, 16, 130)])
 def test_min_search_matches_reference(ascending, shape):

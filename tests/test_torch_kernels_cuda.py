@@ -1,5 +1,5 @@
-"""The fused TNS, key-pack, radix top-k and pruned-matmul CUDA kernels
-against their plain PyTorch versions on the card.  The file imports no JAX, so it
+"""The fused TNS, digit-read, key-pack, radix top-k and pruned-matmul CUDA
+kernels against their plain PyTorch versions on the card.  The file imports no JAX, so it
 runs on a machine with a card and no JAX:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core import bitplane as bp
-from repro_torch.kernels import (bitplane_pack, fused_tns, masked_matmul,
-                                 radix_topk, ref)
+from repro_torch.kernels import (bitplane_pack, digit_read, fused_tns,
+                                 masked_matmul, radix_topk, ref)
 
 
 def _keys(shape, seed):
@@ -160,8 +160,11 @@ def test_matmul_kernel_matches_plain_version_on_card(cuda_device, dtype):
     w = torch.randn(257, 120, generator=g).to(dtype).to(cuda_device)
     keep = (torch.rand(257, generator=g) > 0.3).to(cuda_device)
     launches = masked_matmul.LAUNCHES
+    form = "ffma" if dtype == torch.float32 else "wmma"   # K = 257
+    forms = dict(masked_matmul.FORM_LAUNCHES)
     got = masked_matmul.pruned_matmul(x, w, keep)
     assert masked_matmul.LAUNCHES == launches + 1
+    assert masked_matmul.FORM_LAUNCHES[form] == forms[form] + 1
     want = ref.pruned_matmul_ref(x, w, keep)
     # both within the float32-accumulation bound of the float64 product:
     # one float32 ulp per addition over K terms (acc), plus the output's
@@ -175,3 +178,130 @@ def test_matmul_kernel_matches_plain_version_on_card(cuda_device, dtype):
     tol = acc * (1 + unit) + unit * exact.abs()
     for y in (got, want):
         assert bool(((y.double() - exact).abs() <= tol).all())
+
+
+def _within_bound(x, w, keep, y):
+    """``y`` within the float32-accumulation bound of the float64 product
+    (the bound of the test above), off the product's NaN entries, which
+    must be NaN in ``y`` too."""
+    x0 = torch.where(torch.isfinite(x), x, torch.zeros_like(x)).double()
+    w0 = torch.where(torch.isfinite(w), w, torch.zeros_like(w)).double()
+    exact = (x.double() * keep.double()) @ w.double()
+    nan = torch.isnan(exact)
+    assert torch.equal(torch.isnan(y), nan)
+    xm = x0 * keep.double()
+    exact0 = xm @ w0
+    unit = 2.0 ** -8 if x.dtype == torch.bfloat16 else 2.0 ** -24
+    acc = x.shape[1] * 2.0 ** -23 * (xm.abs() @ w0.abs())
+    tol = acc * (1 + unit) + unit * exact0.abs()
+    return bool(((y.double() - exact0).abs() <= tol)[~nan].all())
+
+
+# the wgmma form's edges: M of one row, a warpgroup's 64 rows and one past,
+# a ragged pair of tiles; N of one 16-byte chunk, one tile and one past;
+# K of one chunk, one step and a chunk, 32 steps and a chunk
+_MM_EDGE_CELLS = [(m, n, k) for m in (1, 64, 65, 130) for n in (8, 256, 264)
+                  for k in (8, 72, 2056)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", _MM_EDGE_CELLS,
+                         ids=[f"M{m}-N{n}-K{k}" for m, n, k in _MM_EDGE_CELLS])
+def test_matmul_wgmma_form_at_its_edges_on_card(cuda_device, m, n, k):
+    g = torch.Generator().manual_seed(m * n + k)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda_device)
+    w = torch.randn(k, n, generator=g).to(torch.bfloat16).to(cuda_device)
+    keep = (torch.rand(k, generator=g) > 0.3).to(cuda_device)
+    assert masked_matmul.form_for(x, w) == "wgmma"
+    for mask in (keep, torch.zeros_like(keep), torch.ones_like(keep)):
+        launches = dict(masked_matmul.FORM_LAUNCHES)
+        got = masked_matmul.pruned_matmul(x, w, mask)
+        assert masked_matmul.FORM_LAUNCHES["wgmma"] == launches["wgmma"] + 1
+        assert _within_bound(x, w, mask, got)
+        if not bool(mask.any()):
+            assert not bool(got.abs().max())
+    # deterministic: the same bits twice
+    assert torch.equal(masked_matmul.pruned_matmul(x, w, keep),
+                       masked_matmul.pruned_matmul(x, w, keep))
+
+
+@pytest.mark.cuda
+def test_matmul_nan_in_pruned_lanes_on_card(cuda_device):
+    # NaN / infinity in pruned lanes of x and pruned rows of w: NaN in the
+    # same rows and columns as the plain version's
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(130, 200, generator=g).to(torch.bfloat16)
+    w = torch.randn(200, 264, generator=g).to(torch.bfloat16)
+    keep = torch.rand(200, generator=g) > 0.3
+    pruned = torch.nonzero(~keep).flatten()
+    x[3, pruned[0]], x[70, pruned[4]] = float("nan"), float("-inf")
+    w[pruned[1], 5], w[pruned[6], 200] = float("inf"), float("nan")
+    x, w, keep = x.to(cuda_device), w.to(cuda_device), keep.to(cuda_device)
+    got = masked_matmul.pruned_matmul(x, w, keep)
+    want = ref.pruned_matmul_ref(x, w, keep)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == 2 * 264 + 2 * 130 - 4
+    assert _within_bound(x, w, keep, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 0, 16), (64, 64, 60)],
+                         ids=["K0", "N60"])
+def test_matmul_wmma_form_on_card(cuda_device, shape):
+    # K = 0 (which no tensor map can describe: zeros) and N not a multiple
+    # of 8 take the wmma form
+    m, k, n = shape
+    g = torch.Generator().manual_seed(k + n)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda_device)
+    w = torch.randn(k, n, generator=g).to(torch.bfloat16).to(cuda_device)
+    keep = (torch.rand(k, generator=g) > 0.3).to(cuda_device)
+    launches = dict(masked_matmul.FORM_LAUNCHES)
+    got = masked_matmul.pruned_matmul(x, w, keep)
+    assert masked_matmul.FORM_LAUNCHES["wmma"] == launches["wmma"] + 1
+    assert _within_bound(x, w, keep, got)
+    if k == 0:
+        assert got.shape == (m, n) and not bool(got.abs().max())
+
+
+_DR_EDGE_CELLS = [(n, w) for n in (1, 33, 512, 2048, 2049, 65536)
+                  for w in (1, 16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", _DR_EDGE_CELLS,
+                         ids=[f"N{n}-W{w}" for n, w in _DR_EDGE_CELLS])
+def test_digit_read_at_its_form_edges_on_card(cuda_device, n, w):
+    # planes holding bytes 2 and 255 and an all-ties row, both directions:
+    # mask and useful DRs equal to the plain version's
+    rng = np.random.default_rng(n + w)
+    planes = rng.integers(0, 2, (4, w, n)).astype(np.uint8)
+    odd = rng.random(planes.shape)
+    planes[odd < 0.03] = 2
+    planes[odd > 0.97] = 255
+    planes[1] = planes[1, :, :1]
+    p = torch.from_numpy(planes).to(cuda_device)
+    form = digit_read.form_for(w, n)
+    for ascending in (True, False):
+        launches = dict(digit_read.FORM_LAUNCHES)
+        mask, drs = digit_read.min_search(p, ascending)
+        assert digit_read.FORM_LAUNCHES[form] == launches[form] + 1
+        rmask, rdrs = ref.min_search_ref(p, ascending)
+        assert torch.equal(mask, rmask) and torch.equal(drs, rdrs)
+
+
+@pytest.mark.cuda
+def test_fused_tns_kernel_on_bytes_outside_0_1_on_card(cuda_device):
+    # a plane or sign byte counts as a 1 wherever it is not 0
+    rng = np.random.default_rng(11)
+    planes = rng.integers(0, 2, (6, 16, 300)).astype(np.uint8)
+    planes[rng.random(planes.shape) < 0.1] = 255
+    planes[rng.random(planes.shape) < 0.1] = 2
+    sign = rng.integers(0, 2, (6, 300)).astype(np.uint8)
+    sign[rng.random(sign.shape) < 0.2] = 2
+    p, s = bp.planes_from_numpy(planes, sign, device=cuda_device)
+    for stop in (6, None):
+        got = fused_tns.fused_tns_rank(p, s, k=2, fmt="float",
+                                       stop_after=stop)
+        want = fused_tns.fused_tns_rank_ref(
+            p, s, k=2, fmt="float", stop_n=300 if stop is None else stop)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
