@@ -59,6 +59,22 @@ order; any failure raises and exits non-zero:
       dropped by ``prune_mask``, through the matmul's wgmma form;
    h. ``topk_mask(logits, 50)`` over olmo-1b's vocabulary, (64, 50304)
       (plain torch);
+   i. ``sort(x, k=2)`` on a's x with no engine named: the default ``tns``
+      engine, the batched machine in plain torch on the card, held bit for
+      bit to a's ``fused-tns`` result (perm, values, cycles, DRs, reload
+      cycles), timed step by step; the single instance on row 0;
+   j. the other latency engines at N = 1024, each held to the port's host
+      run of the same call and to a stable argsort: ``ml`` (level_bits 4)
+      and ``tns`` with ``ideal_lifo`` (the generic step), ``mb`` with 4
+      banks on (16, 1024) float16, ``bts`` on two rows, ``bitslice`` on
+      (16, 1024) uint16;
+   k. faults: ``FaultSpec(ber=1e-3, dead_banks=(1,), banks=4, seed=0)``;
+      ``resilient:tns`` and ``resilient:fused-tns`` on (16, 1024) float16
+      equal the clean sort, undegraded, with the host run's fault, repair,
+      retry and extra-cycle counts (the fused engine's host run on two
+      rows, its whole batch held to ``resilient:tns``'s counts); ``mb-ft``
+      over 4 banks with bank 1 dead on (1023,) float16, through the
+      multi-bank machine over the 3 survivors;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -68,8 +84,10 @@ order; any failure raises and exits non-zero:
    path e's (4096, 1024) k=32 and olmo-1b's vocabulary (64, 50304) k=50,
    each beside ``torch.topk`` on int64-widened and on sign-flipped int32
    keys and its bound, and at (4096, 1024) for k in {1, 32, 64}; a
-   breakdown of the ``topk()`` call; the pruned matmul and the digit read
-   beside their times before their redesign (``PERF.md``), the matmul with
+   breakdown of the ``topk()`` call; path i's call step by step beside the
+   fused kernel, and the single instance's time a cycle; the pruned matmul
+   and the digit read beside their times before their redesign
+   (``PERF.md``), the matmul with
    inputs cold in L2, also with every lane kept (the mask's cost), and the
    host time of a call of each matmul form (the wgmma form encodes two
    TMA descriptors a call);
@@ -823,6 +841,172 @@ def main() -> int:
     print(f"topk_mask (64, 50304) k=50: launches {counts()} (plain torch); "
           "50 a row, every selected key >= every unselected", flush=True)
 
+    # ---- 4i. the default engine at full width: sort(x) through "tns"
+    from repro_torch.core import catns, tns
+    from repro_torch.runtime import faults
+    zero_counts()
+    t0 = time.perf_counter()
+    res_i = sort(x, k=2)
+    tns_s = time.perf_counter() - t0
+    tns_launches = counts()
+    expect(res_i.engine == "tns", f"sort(x) ran {res_i.engine}, not tns")
+    for f in ("indices", "values", "cycles", "drs", "reload_cycles"):
+        expect(np.array_equal(getattr(res_i, f), getattr(res, f)),
+               f"sort(x) through tns: {f} != path a's fused-tns result")
+    # the same call's steps one by one, on the host clock
+    marks = [time.perf_counter()]
+    digits_i, sign_i = tns._encode(x, 16, "float", 1)
+    marks.append(time.perf_counter())
+    d_in, s_in = tns._to_device(digits_i, sign_i, dev)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    out_i = tns.tns_sort_planes_batched(d_in, s_in, k=2, fmt="float")
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    expect(out_i.perm.device.type == "cuda", "the tns machine left the card")
+    perm_i = out_i.perm.cpu().numpy()
+    np.take_along_axis(x, perm_i, axis=-1)
+    marks.append(time.perf_counter())
+    expect(np.array_equal(perm_i, res.indices), "tns machine perm != a's")
+    tns_steps = dict(zip(("encode on the host", "copy in", "machine",
+                          "finish"),
+                         ((b - a) * 1e3 for a, b in zip(marks, marks[1:]))))
+    max_cyc = int(res_i.cycles.max())
+    print(f"sort(x) default engine tns (4096, 1024) float16: launches "
+          f"{tns_launches} (plain torch), {tns_s:.3f} s; perm, values, "
+          f"cycles, DRs, reload cycles == path a's fused-tns bit for bit; "
+          f"cycles a bank {int(res_i.cycles.min())}-{max_cyc}", flush=True)
+    # the single instance (1-D input): registers on the host, a sync a cycle
+    t0 = time.perf_counter()
+    one_i = sort(x[0], k=2)
+    single_s = time.perf_counter() - t0
+    expect(np.array_equal(one_i.indices, res.indices[0])
+           and int(one_i.cycles) == int(res.cycles[0])
+           and int(one_i.drs) == int(res.drs[0])
+           and int(one_i.reload_cycles) == int(res.reload_cycles[0]),
+           "single instance row 0 != path a's row 0")
+    print(f"single instance, row 0 (1024,): {single_s:.3f} s for "
+          f"{int(one_i.cycles)} cycles == path a's row 0", flush=True)
+
+    # ---- 4j. the other latency engines, each held to its own host run (16
+    # banks: on the card the machines wait on the host to launch their
+    # steps, whatever B; their host runs grow with B)
+    xj = x[:16]
+    xu = np.random.default_rng(7).integers(0, 2**16, (16, 1024)).astype(
+        np.uint16)
+    engine_s = {}
+    for what, xe, kw in (("ml (level_bits 4)", xj, dict(engine="ml")),
+                         ("tns ideal_lifo", xj,
+                          dict(engine="tns", ideal_lifo=True)),
+                         ("mb banks 4", xj, dict(engine="mb", banks=4)),
+                         ("bts", xj[:2], dict(engine="bts")),
+                         ("bitslice unsigned", xu, dict(engine="bitslice"))):
+        zero_counts()
+        t0 = time.perf_counter()
+        got = sort(xe, k=2, **kw)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = sort(xe, k=2, device="cpu", **kw)
+        host_s = time.perf_counter() - t0
+        engine_s[what] = (card_s, host_s, tuple(xe.shape))
+        for f in ("indices", "values", "cycles", "drs", "reload_cycles"):
+            expect(np.array_equal(getattr(got, f), getattr(want, f)),
+                   f"{what}: {f} on the card != the host run")
+        keys_e = bp.sort_key(xe, 16, "float" if xe.dtype == np.float16
+                             else "unsigned")
+        expect(np.array_equal(got.indices, np.argsort(keys_e, axis=1,
+                                                      kind="stable")),
+               f"{what}: != stable argsort of the sort keys")
+    print("latency engines == their host runs and the stable argsort: "
+          + "; ".join(f"{w} {shape}: card {c:.3f} s, host {h:.3f} s"
+                      for w, (c, h, shape) in engine_s.items()), flush=True)
+
+    # ---- 4k. faults on the card: verify and repair
+    spec = faults.FaultSpec(ber=1e-3, dead_banks=(1,), banks=4, seed=0)
+    xk = x[:16]
+    fault_s = {}
+    fault_res = {}
+    for engine, host_rows in (("resilient:tns", 16),
+                              ("resilient:fused-tns", 2)):
+        zero_counts()
+        t0 = time.perf_counter()
+        with faults.inject(spec):
+            got = sort(xk, engine=engine, k=2)
+        card_s = time.perf_counter() - t0
+        fault_res[engine] = (got, counts())
+        # the clean sort's values, bit for bit (a verified emission may
+        # order equal values differently from the stable one)
+        expect(np.array_equal(got.values.view(np.uint16),
+                              res.values[:16].view(np.uint16))
+               and not got.degraded and got.quality == 1.0,
+               f"{engine}: not the clean sort")
+        expect(got.faults_injected > 0 and got.repairs > 0,
+               f"{engine}: no fault was injected and repaired")
+        if host_rows < 16:
+            # the fused kernel's plain version is slow on the host: the
+            # whole batch is held to resilient:tns's repairs (the same
+            # machine counts), the first rows to the host run
+            for f in ("quality", "faults_injected", "repairs", "retries",
+                      "degraded", "extra_cycles"):
+                expect(getattr(got, f) == getattr(
+                    fault_res["resilient:tns"][0], f),
+                    f"{engine}: {f} != resilient:tns's")
+            with faults.inject(spec):
+                got = sort(xk[:host_rows], engine=engine, k=2)
+        t0 = time.perf_counter()
+        with faults.inject(spec):
+            want = sort(xk[:host_rows], engine=engine, k=2, device="cpu")
+        fault_s[engine] = (card_s, time.perf_counter() - t0, host_rows)
+        for f in ("indices", "cycles", "quality", "faults_injected",
+                  "repairs", "retries", "degraded", "extra_cycles"):
+            expect(np.array_equal(getattr(got, f), getattr(want, f)),
+                   f"{engine}: {f} on the card != the host run")
+    fused_fault_launches = fault_res["resilient:fused-tns"][1]["fused_tns"]
+    expect(fused_fault_launches > 0, "resilient:fused-tns did not launch "
+           "fused_tns")
+    # mb-ft over 4 banks with bank 1 dead: the 3 survivors split N = 1023
+    # evenly, so the multi-bank machine runs on the card
+    mb_calls = []
+    real_mb = catns.multibank_sort
+
+    def counted_mb(*a, **kw):
+        mb_calls.append(kw["banks"])
+        return real_mb(*a, **kw)
+
+    catns.multibank_sort = counted_mb
+    x1 = np.random.default_rng(8).standard_normal(1023).astype(np.float16)
+    try:
+        t0 = time.perf_counter()
+        with faults.inject(spec):
+            got = sort(x1, engine="mb-ft", banks=4, k=2)
+        mbft_s = time.perf_counter() - t0
+        with faults.inject(spec):
+            want = sort(x1, engine="mb-ft", banks=4, k=2, device="cpu")
+    finally:
+        catns.multibank_sort = real_mb
+    expect(mb_calls and set(mb_calls) == {3}, "mb-ft did not run the "
+           "multi-bank machine over the 3 surviving banks")
+    expect(got.banks == 3 and got.quality == 1.0 and not got.degraded
+           and np.array_equal(got.values.view(np.uint16),
+                              sort(x1, k=2).values.view(np.uint16)),
+           "mb-ft: not the clean sort over 3 banks")
+    for f in ("indices", "cycles", "quality", "faults_injected", "repairs",
+              "retries", "degraded", "extra_cycles"):
+        expect(np.array_equal(getattr(got, f), getattr(want, f)),
+               f"mb-ft: {f} on the card != the host run")
+    ft = fault_res["resilient:tns"][0]
+    print(f"faults {spec}: resilient:tns and resilient:fused-tns (16, 1024) "
+          f"== the clean sort, not degraded, faults injected "
+          f"{ft.faults_injected}, repairs {ft.repairs}, retries "
+          f"{ft.retries}, extra cycles {ft.extra_cycles}, == the host runs; "
+          f"fused_tns launches {fused_fault_launches}; "
+          + "; ".join(f"{e}: card {c:.3f} s (16 rows), host {h:.3f} s "
+                      f"({r} rows)" for e, (c, h, r) in fault_s.items())
+          + f"; mb-ft (1023,) over the multi-bank machine (banks "
+          f"{sorted(set(mb_calls))}, {len(mb_calls)} runs), repairs "
+          f"{got.repairs}, retries {got.retries}, extra cycles "
+          f"{got.extra_cycles}, card {mbft_s:.3f} s", flush=True)
+
     # ---- 5. times
     B, W, N = planes.shape
     fused_ms = cuda_ms(lambda: fused_tns.fused_tns_rank(
@@ -914,6 +1098,14 @@ def main() -> int:
     print(f"[{card}] sort(engine='fused-tns') whole call: {sort_ms:.1f} ms; "
           "steps: " + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items()),
           flush=True)
+    print(f"[{card}] sort(x) default engine tns (4096, 1024) whole call: "
+          f"{tns_s * 1e3:.1f} ms; steps: " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in tns_steps.items())
+          + f"; the machine {tns_steps['machine'] / fused_ms:.0f}x the fused "
+          f"kernel's {fused_ms:.4f} ms, {tns_steps['machine'] / max_cyc:.4f} "
+          f"ms a cycle over {max_cyc} cycles; single instance (1024,) "
+          f"{single_s * 1e3:.1f} ms, {single_s * 1e3 / int(one_i.cycles):.4f}"
+          f" ms a cycle", flush=True)
     print(f"[{card}] fused_tns (512, 16384) stop_after=64: {topm_ms:.4f} ms;"
           f" bytes bound {tb[2]:.4f} ms; "
           + ops_bounds(topm_ops, word_ops(cnt_b, planes_b.shape[2]))
@@ -1109,7 +1301,7 @@ def main() -> int:
         {"name": "fused_tns", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_tns.cu",
          "replaces": "src/repro/kernels/fused_tns.py:155",
-         "launches": launches["fused_tns"],
+         "launches": launches["fused_tns"] + fused_fault_launches,
          "max_abs_err": float(err["fused_tns"]), "ms": fused_ms,
          "plain_ms": plain_s * 1e3, "bound_ms": fwb[0], "bound_by": fwb[1],
          "library_ms": lib_ms},

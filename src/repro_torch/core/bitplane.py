@@ -23,7 +23,7 @@ them with ``& 0xFFFFFFFF`` to int64 first.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +171,12 @@ def key_to_value(key, width: int, fmt: str):
     return from_raw_bits(u, width, fmt)
 
 
+def encode_array(x, width: int, fmt: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Convenience: (bitplanes, sort_keys) — the "programming" step that
+    writes a dataset into the memristor array (paper Fig. 2d)."""
+    return to_bitplanes(x, width, fmt), sort_key(x, width, fmt)
+
+
 # ---------------------------------------------------------------------------
 # Device sort keys for in-model use (throughput mode): the counterparts of
 # the reference's ``sort_key_jnp`` / ``key_to_value_jnp``, under the
@@ -183,6 +189,7 @@ _SIGN32 = -(1 << 31)          # 0x80000000 as int32 bits
 _KEY_WIDTH = {torch.float32: 32, torch.int32: 32, torch.uint32: 32,
               torch.float16: 16, torch.bfloat16: 16, torch.int16: 16,
               torch.uint16: 16, torch.uint8: 8}
+KEY_DTYPES = frozenset(_KEY_WIDTH)
 
 
 def flip_key_t(keys: torch.Tensor, width: int) -> torch.Tensor:

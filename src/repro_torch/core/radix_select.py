@@ -119,6 +119,16 @@ def extract_topk(keys: torch.Tensor, k: int, r: int = 4, *,
     return torch.gather(keys, -1, idx.long()), idx
 
 
+def gather_values(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` gathered at ``idx`` along the last axis, bit for bit: a
+    bfloat16 gather writes every NaN as 0xFFFF, so bfloat16 goes through
+    its int16 view."""
+    if x.dtype == torch.bfloat16:
+        return torch.gather(x.view(torch.int16), -1,
+                            idx.long()).view(torch.bfloat16)
+    return torch.gather(x, -1, idx.long())
+
+
 def topk_values(x: torch.Tensor, k: int, r: int = 4,
                 largest: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """``torch.topk``-compatible comparison-free top-k (values desc when
@@ -127,7 +137,7 @@ def topk_values(x: torch.Tensor, k: int, r: int = 4,
     if largest:
         keys = bp.flip_key_t(keys, w)
     _, idx = extract_topk(keys, k, r=r, width=w)
-    return torch.gather(x, -1, idx.long()), idx
+    return gather_values(x, idx), idx
 
 
 # ---------------------------------------------------------------------------
@@ -227,4 +237,4 @@ def sort_values(x: torch.Tensor, r: int = 4, descending: bool = False
     """(sorted values, permutation) along the last axis, comparison-free."""
     keys, w = bp.sort_key_t(x)
     perm = radix_sort_keys(keys, r=r, descending=descending, width=w)
-    return torch.gather(x, -1, perm.long()), perm
+    return gather_values(x, perm), perm

@@ -74,7 +74,7 @@ def _flip_mask(fmt: str, ascending: bool, width: int,
     return torch.where(neg_pend, base | low, base).to(torch.int64)
 
 
-def _words(bits: torch.Tensor) -> torch.Tensor:
+def pack_words(bits: torch.Tensor) -> torch.Tensor:
     """(B, ..., N) bool -> (B, ..., ceil(N/32)) int64 holding 32-bit words:
     lane i is bit ``i & 31`` of word ``i >> 5``; pad bits are 0."""
     n = bits.shape[-1]
@@ -86,14 +86,17 @@ def _words(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _lanes(words: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, nw) words -> (B, n) bool lanes (the inverse of ``_words``)."""
+    """(B, nw) words -> (B, n) bool lanes (the inverse of ``pack_words``)."""
     shift = torch.arange(32, dtype=torch.int64, device=words.device)
     bits = (words[..., None] >> shift) & 1
     return bits.reshape(words.shape[:-1] + (-1,))[..., :n] != 0
 
 
-def _popc(x: torch.Tensor) -> torch.Tensor:
-    """Population count of int64-held 32-bit words."""
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Population count (int64) of 32-bit words, held in int64 or carried
+    as int32 bits."""
+    if x.dtype == torch.int32:
+        x = x.to(torch.int64) & _WORD
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
@@ -118,14 +121,14 @@ def fused_tns_rank_ref(planes: torch.Tensor,
     B, W, N = planes.shape
     dev = planes.device
     i64 = torch.int64
-    col = _words(planes != 0)                        # (B, W, nw)
+    col = pack_words(planes != 0)                    # (B, W, nw)
     ncol = ~col & _WORD
     stored = torch.zeros_like(col)     # the set that reached each column
-    alive = _words(torch.ones((B, N), dtype=torch.bool, device=dev))
+    alive = pack_words(torch.ones((B, N), dtype=torch.bool, device=dev))
     signed = fmt in (bp.SIGNMAG, bp.FLOAT)
     if signed:
         sgn = (torch.zeros_like(alive) if sign is None
-               else _words(sign != 0))
+               else pack_words(sign != 0))
         sign_dir = sgn if ascending else ~sgn & _WORD
     iota_w = torch.arange(W, dtype=i64, device=dev)
     pos_w = W - 1 - iota_w                           # column c -> its bit
@@ -150,7 +153,7 @@ def fused_tns_rank_ref(planes: torch.Tensor,
         m0, col0 = alive, zero
         if k > 0:
             sets = stored & alive[:, None, :]
-            size = _popc(sets).sum(dim=2)            # (B, W)
+            size = popcount(sets).sum(dim=2)         # (B, W)
             live = (((present[:, None] >> pos_w) & 1) != 0) & (size > 0)
             c_res = torch.where(live, iota_w, -1).amax(dim=1)
             hit, at = c_res >= 0, c_res.clamp(min=0)
@@ -159,7 +162,7 @@ def fused_tns_rank_ref(planes: torch.Tensor,
             below = _shl1(pos_res) - 1               # columns deeper
             drained = present & below
             spent = torch.where(running,
-                                (_popc(drained) - 1).clamp(min=0), 0)
+                                (popcount(drained) - 1).clamp(min=0), 0)
             present = torch.where(running, present & ~drained, present)
             # the resumed column holds the PRE-exclusion set: it becomes a
             # prefix hole; holes deeper belong to popped subtrees
@@ -194,7 +197,7 @@ def fused_tns_rank_ref(planes: torch.Tensor,
         dm = torch.where(mixed, iota_w, -1).amax(dim=1)  # deepest mixed
         # the winner's digit: the kept one where some lane had it
         wdig = ~((torch.stack(some_kept, dim=1) * bits).sum(dim=1) ^ flipv)
-        t = _popc(m).sum(dim=1)                      # the winner tie set
+        t = popcount(m).sum(dim=1)                   # the winner tie set
         # deepest column still read: W-1 when the winner is a tie, else
         # the deepest mixed one
         cend = torch.where(t >= 2, W - 1, dm)
@@ -202,7 +205,7 @@ def fused_tns_rank_ref(planes: torch.Tensor,
         rm = torch.where(running & (cend >= col0),
                          _shl1(W - col0) - _shl1(W - 1 - cend), 0)
         ebits = eb & rm
-        udr = udr + _popc(ebits)
+        udr = udr + popcount(ebits)
         if k > 0:
             pathv = torch.where(running, (pathv & ~rm) | (wdig & rm), pathv)
             # pushes at the mixed columns; drop-oldest keeps the deepest
@@ -220,7 +223,7 @@ def fused_tns_rank_ref(planes: torch.Tensor,
         p = win.cumsum(dim=1) - win
         emit = (win != 0) & (p < r[:, None])
         rank = torch.where(emit, (out[:, None] + p).to(torch.int32), rank)
-        alive = alive & ~_words(emit)
+        alive = alive & ~pack_words(emit)
         out = out + r
         emit_cyc = torch.where(ep_drs == 0, torch.where(t > 1, r, 1),
                                (r - 1).clamp(min=0))

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.radix_select import gather_values
 from repro_torch.kernels import bitplane_pack as _pack
 from repro_torch.kernels import digit_read as _dr
 from repro_torch.kernels import masked_matmul as _mm
@@ -22,7 +23,7 @@ def topk(x: torch.Tensor, k: int, r: int = 4):
     two kernel launches on the card."""
     keys = _pack.pack_keys(x)
     _, idx = _topk.topk_keys(~keys, k, r=r)
-    return torch.gather(x, -1, idx.long()), idx
+    return gather_values(x, idx), idx
 
 
 def min_search(planes: torch.Tensor, ascending: bool = True):

@@ -2,6 +2,7 @@
 engine registry.
 
     from repro_torch import sort
+    res = sort.sort(x, k=4)                       # the tns machine (card)
     res = sort.sort(x, engine="fused-tns", k=4)   # CUDA kernel, on the card
     res = sort.sort(xb, engine="radix")           # throughput, batched
     vals, idx = sort.topk(logits, 6, engine="fused-topk")   # in-model

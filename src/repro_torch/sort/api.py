@@ -1,7 +1,8 @@
 """The sort-engine front door of the port::
 
     from repro_torch import sort
-    res = sort.sort(x, engine="fused-tns", k=4)          # on the card
+    res = sort.sort(x, k=4)                    # the "tns" machine, on the card
+    res = sort.sort(x, engine="fused-tns", k=4)          # the CUDA kernel
     res = sort.sort(batch, engine="fused-tns", stop_after=8)   # (B, N)
     res = sort.sort(x, engine="fused-tns", device="cpu")  # plain versions
     vals, idx = sort.topk(logits, 6, engine="fused-topk")   # tensors
@@ -66,12 +67,12 @@ def sort(x, *, engine: str = "tns", fmt: Optional[str] = None,
     returns the identical permutation (ties: lowest index first).
 
     ``device=None`` runs on the CUDA device and raises ``RuntimeError``
-    without one; ``device="cpu"`` runs the kernels' plain PyTorch versions.
+    without one; ``device="cpu"`` runs the kernels' plain PyTorch versions
+    and the machines on the host.
 
-    The default engine ``"tns"`` (the cycle-faithful while_loop machine)
-    is not ported yet: until it is, calling ``sort(x)`` without an engine
-    raises the registry's "unknown sort engine" ``KeyError`` — a missing
-    engine, never a fallback to another one.
+    The default engine ``"tns"`` is the cycle-faithful controller machine
+    (:mod:`repro_torch.core.tns`), plain torch on the device: the batched
+    machine for a (B, N) input, the single instance for (N,).
     """
     spec = get_engine(engine)
     dev = backend.resolve_device(device)
@@ -97,7 +98,17 @@ def sort(x, *, engine: str = "tns", fmt: Optional[str] = None,
             cycles=stack("cycles"), drs=stack("drs"),
             reload_cycles=stack("reload_cycles"),
             strategy=p0.strategy, k=p0.k, level_bits=p0.level_bits,
-            banks=p0.banks)
+            banks=p0.banks,
+            # resilience observables aggregate across the batch: quality
+            # is the worst instance (the degradation contract is per
+            # emission), counters sum, degraded if any instance degraded
+            quality=(None if p0.quality is None else
+                     min(float(p.quality) for p in parts)),
+            faults_injected=sum(p.faults_injected for p in parts),
+            repairs=sum(p.repairs for p in parts),
+            retries=sum(p.retries for p in parts),
+            degraded=any(p.degraded for p in parts),
+            extra_cycles=sum(p.extra_cycles for p in parts))
     return spec.fn(x, **call)
 
 
@@ -120,10 +131,19 @@ def topk(x: torch.Tensor, k: int, *, engine: str = "radix", r: int = 4
     descending.  Engines: ``radix`` (iterated digit-plane min-search in
     plain torch, any rank), ``fused-topk`` (the fused CUDA kernel, the
     router hot path; the reference's ``pallas``), ``torch``
-    (``torch.topk``, the comparison baseline; the reference's ``lax``)."""
+    (a stable ``torch.sort``, the comparison baseline; the reference's
+    ``lax``)."""
     if engine == "torch":
-        v, i = torch.topk(x, k)
-        return v, i.to(torch.int32)
+        # a stable descending sort of the order-preserving keys, then the
+        # first k: the keys order floats totally (-NaN < -inf < -0 < +0 <
+        # inf < NaN) and ties go to the lowest index first, as in
+        # ``jax.lax.top_k`` (torch.topk leaves ties in no set order)
+        keys = x
+        if x.dtype in bp.KEY_DTYPES:
+            keys = bp.sort_key_t(x)[0].long() & 0xFFFFFFFF
+        order = torch.sort(keys, dim=-1, descending=True, stable=True).indices
+        i = order[..., :k]
+        return rs.gather_values(x, i), i.to(torch.int32)
     if engine == "radix":
         return rs.topk_values(x, k, r=r)
     if engine == "fused-topk":

@@ -4,6 +4,11 @@ resolved by lowest index first, the hardware's emission order), and the
 same permutation as the reference package's engine it ports:
 
     reference engine   port engine
+    tns                tns
+    ml                 ml
+    mb                 mb
+    bts                bts
+    bitslice           bitslice
     pallas-tns         fused-tns
     tns-oracle         tns-oracle
     pallas-topk        fused-topk
@@ -14,8 +19,10 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core import bitplane as bp
+from repro_torch.core import catns
 from repro_torch.core import radix_select as rs
 from repro_torch.core import ref_tns as rt
+from repro_torch.core import tns as tt
 from repro_torch.kernels import fused_tns, radix_topk
 from repro_torch.sort.registry import register
 from repro_torch.sort.result import SortResult
@@ -35,6 +42,70 @@ def _finish(x, perm, *, engine, fmt, width, k=0, level_bits=1,
                       strategy=strategy, k=k, level_bits=level_bits)
 
 
+# ---------------------------------------------------------------------------
+# Latency mode (cycle-faithful controllers)
+# ---------------------------------------------------------------------------
+
+
+def _host(out: tt.TnsOut) -> tt.TnsOut:
+    return tt.TnsOut(*(t.cpu().numpy() for t in out))
+
+
+@register("tns", mode="latency", strategy="tns", supports_stop_after=True,
+          supports_batch=True,
+          description="Cycle-faithful TNS (plain torch on the device; "
+                      "batched bit-parallel machine for (B, N) inputs)")
+def _tns(x, *, width, fmt, k, ascending, level_bits, stop_after, device,
+         ideal_lifo=False):
+    call = dict(width=width, k=k, fmt=fmt, ascending=ascending,
+                level_bits=level_bits, ideal_lifo=ideal_lifo,
+                stop_after=stop_after, device=device)
+    if x.ndim == 2 and x.shape[-1] < tt.MAX_BATCH_N:
+        out = _host(tt.tns_sort_batch(x, **call))
+    elif x.ndim == 2:
+        # the batched machine's packed counts cap N per bank at 2^15;
+        # larger banks run one instance after another
+        outs = [_host(tt.tns_sort(x[b], **call)) for b in range(x.shape[0])]
+        out = tt.TnsOut(*(np.stack([getattr(o, f) for o in outs])
+                          for f in tt.TnsOut._fields))
+    else:
+        out = _host(tt.tns_sort(x, **call))
+    return _finish(x, out.perm, engine="tns", fmt=fmt, width=width, k=k,
+                   level_bits=level_bits, stop_after=stop_after,
+                   cycles=out.cycles, drs=out.drs,
+                   reload_cycles=out.reload_cycles, strategy="tns")
+
+
+@register("ml", mode="latency", strategy="ml", supports_stop_after=True,
+          supports_batch=True,
+          description="Multi-level TNS (§2.3.3): radix-2^n cells, fewer "
+                      "digit reads per number")
+def _ml(x, *, width, fmt, k, ascending, level_bits, stop_after, device):
+    lb = level_bits if level_bits > 1 else 4
+    # a radix-2^n digit straddles the sign/exponent bits, so signed and
+    # float formats are first linearised to order-preserving unsigned keys
+    # (S6's exclusion polarity folded into the encoding)
+    keys = bp.sort_key(x, width, fmt)
+    res = _tns(keys, width=width, fmt=bp.UNSIGNED, k=k, ascending=ascending,
+               level_bits=lb, stop_after=stop_after, device=device)
+    res.values = np.take_along_axis(np.asarray(x), res.indices, axis=-1)
+    res.engine, res.strategy, res.fmt = "ml", "ml", fmt
+    return res
+
+
+@register("mb", mode="latency", strategy="mb", supports_stop_after=True,
+          supports_batch=True,
+          description="Multi-bank CA-TNS (§2.3.1): cycle-identical to TNS "
+                      "(eq. 2) at the multi-bank operating point; banks "
+                      "shard N")
+def _mb(x, *, width, fmt, k, ascending, level_bits, stop_after, device,
+        banks=2):
+    res = _tns(x, width=width, fmt=fmt, k=k, ascending=ascending,
+               level_bits=level_bits, stop_after=stop_after, device=device)
+    res.engine, res.strategy, res.banks = "mb", "mb", banks
+    return res
+
+
 @register("tns-oracle", mode="latency", strategy="tns",
           supports_stop_after=True,
           description="Python event-driven oracle (ground truth the fused "
@@ -48,6 +119,42 @@ def _tns_oracle(x, *, width, fmt, k, ascending, level_bits, stop_after,
                    k=k, level_bits=level_bits,
                    cycles=out.cycles, drs=out.drs,
                    reload_cycles=out.reload_cycles, strategy="tns")
+
+
+@register("bts", mode="latency", strategy="bts",
+          supports_stop_after=True,
+          description="Bit-traversal sort baseline (prior art [42]): every "
+                      "min search restarts at the MSB; N*W cycles")
+def _bts(x, *, width, fmt, k, ascending, level_bits, stop_after, device):
+    out = _host(catns.bts_sort(x, width=width, fmt=fmt, ascending=ascending,
+                               device=device))
+    m = x.shape[-1] if stop_after is None else min(stop_after, x.shape[-1])
+    # BTS latency is exactly W cycles per emitted number (one DR a cycle),
+    # so stopping after m numbers is m*W cycles
+    return _finish(x, out.perm, engine="bts", fmt=fmt, width=width,
+                   stop_after=stop_after, cycles=m * width, drs=m * width,
+                   reload_cycles=0, strategy="bts")
+
+
+@register("bitslice", mode="latency", strategy="bs",
+          formats=(bp.UNSIGNED,),
+          description="Bit-slice CA-TNS (§2.3.2): pipelined upper/lower "
+                      "slice arrays (event-driven oracle on the host; "
+                      "unsigned ascending)")
+def _bitslice(x, *, width, fmt, k, ascending, level_bits, stop_after,
+              device, slice_widths=None):
+    if not ascending:
+        raise NotImplementedError("bitslice oracle models ascending sorts")
+    if slice_widths is None:
+        slice_widths = [width // 2, width - width // 2]
+    out = rt.bitslice_sort(x, width=width, k=max(k, 1),
+                           slice_widths=list(slice_widths))
+    # stop_after truncates the emission (cycles stay full-pipeline: the
+    # slices drain concurrently, so early-stop savings are sub-linear)
+    return _finish(x, out.perm, engine="bitslice", fmt=fmt, width=width,
+                   k=k, stop_after=stop_after, cycles=out.cycles,
+                   drs=out.drs, reload_cycles=out.reload_cycles,
+                   strategy="bs")
 
 
 @register("fused-tns", mode="throughput", strategy="tns",

@@ -64,6 +64,13 @@ def register(name: str, *, mode: str, strategy: Optional[str] = None,
 
 def get_engine(name: str) -> EngineSpec:
     _ensure_builtin()
+    if name not in _REGISTRY and name.startswith("resilient:"):
+        # engines registered after repro_torch.sort.resilient was imported
+        # get their verify-and-repair wrapper built on first request
+        inner = name[len("resilient:"):]
+        if inner in _REGISTRY:
+            from repro_torch.sort.resilient import make_resilient
+            return make_resilient(inner)
     if name not in _REGISTRY:
         raise KeyError(f"unknown sort engine {name!r}; "
                        f"available: {sorted(_REGISTRY)}")
@@ -78,5 +85,7 @@ def available_engines() -> Dict[str, EngineSpec]:
 
 def _ensure_builtin() -> None:
     # importing the module registers the built-in engines (deferred to
-    # avoid a cycle at package import time)
+    # avoid a cycle at package import time); repro_torch.sort.resilient
+    # then wraps each of them (and adds "mb-ft")
     import repro_torch.sort.builtin_engines  # noqa: F401
+    import repro_torch.sort.resilient  # noqa: F401

@@ -36,7 +36,7 @@ class SortResult:
     level_bits: int = 1
     banks: int = 1                     # multi-bank configuration (§2.3.1)
     # resilience observables (defaults mean "ran on an ideal array"; the
-    # fault-tolerant engines that set them are not ported yet)
+    # "resilient:<engine>" wrappers and "mb-ft" set them)
     quality: Optional[float] = None    # sorting accuracy of the emission
     faults_injected: int = 0           # raw bit faults drawn during reads
     repairs: int = 0                   # repair mechanisms in the final run

@@ -118,3 +118,13 @@ def test_planes_from_numpy_carries_the_reference_image(name):
 def test_planes_from_numpy_rejects_bad_images(planes, sign, err):
     with pytest.raises(err):
         bp.planes_from_numpy(planes, sign, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(FMT_DATA))
+def test_encode_array_matches_reference(name):
+    x, width, fmt = _data(name)
+    got = bp.encode_array(x, width, fmt)
+    want = jbp.encode_array(x, width, fmt)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

@@ -1,6 +1,8 @@
 """The fused TNS, digit-read, key-pack, radix top-k and pruned-matmul CUDA
-kernels against their plain PyTorch versions on the card.  The file imports no JAX, so it
-runs on a machine with a card and no JAX:
+kernels against their plain PyTorch versions on the card, and the
+cycle-faithful machines (plain torch) on the card against their runs on
+the host.  The file imports no JAX, so it runs on a machine with a card and
+no JAX:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -9,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import sort as tsort
 from repro_torch.core import bitplane as bp
+from repro_torch.core import catns, tns
+from repro_torch.core import radix_select as rs
 from repro_torch.kernels import (bitplane_pack, digit_read, fused_tns,
-                                 masked_matmul, radix_topk, ref)
+                                 masked_matmul, ops, radix_topk, ref)
+from repro_torch.runtime import faults
 
 
 def _keys(shape, seed):
@@ -305,3 +311,71 @@ def test_fused_tns_kernel_on_bytes_outside_0_1_on_card(cuda_device):
         want = fused_tns.fused_tns_rank_ref(
             p, s, k=2, fmt="float", stop_n=300 if stop is None else stop)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _on_host(out):
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(k=2), dict(k=0, stop_after=9),
+                                dict(k=2, ideal_lifo=True),
+                                dict(k=1, level_bits=4, ascending=False)],
+                         ids=["packed", "packed-k0", "ideal", "ml"])
+def test_machines_on_card_equal_their_host_runs(cuda_device, kw):
+    x = np.random.default_rng(3).standard_normal((8, 200)).astype(
+        np.float16)
+    x[1] = x[1, 0]
+    fmt = "unsigned" if kw.get("level_bits", 1) > 1 else "float"
+    if fmt == "unsigned":
+        x = bp.sort_key(x, 16, "float")
+    call = dict(width=16, fmt=fmt, **kw)
+    got = tns.tns_sort_batch(x, device=cuda_device, **call)
+    assert got.perm.device.type == "cuda"
+    want = tns.tns_sort_batch(x, device="cpu", **call)
+    for g, w in zip(_on_host(got), want):
+        assert torch.equal(g, w)
+    for b in (0, 1):
+        got1 = tns.tns_sort(x[b], device=cuda_device, **call)
+        want1 = tns.tns_sort(x[b], device="cpu", **call)
+        for g, w in zip(_on_host(got1), want1):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_catns_on_card_equals_its_host_runs(cuda_device):
+    x = np.random.default_rng(4).integers(0, 256, 64).astype(np.uint8)
+    for run in (lambda d: catns.multibank_sort(x, width=8, k=2, banks=4,
+                                               device=d),
+                lambda d: catns.bts_sort(x, width=8, device=d)):
+        for g, w in zip(_on_host(run(cuda_device)), run("cpu")):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["resilient:tns", "resilient:fused-tns",
+                                    "mb-ft"])
+def test_faults_on_card_equal_their_host_runs(cuda_device, engine):
+    x = np.random.default_rng(5).integers(0, 1 << 16, 64).astype(np.uint16)
+    spec = faults.FaultSpec(ber=0.01, dead_banks=(1,), banks=4, seed=3)
+    kw = dict(banks=4) if engine == "mb-ft" else {}
+    res = []
+    for dev in (None, "cpu"):
+        with faults.inject(spec):
+            res.append(tsort.sort(x, engine=engine, device=dev, **kw))
+    got, want = res
+    assert np.array_equal(got.indices, want.indices)
+    for f in ("cycles", "quality", "faults_injected", "repairs", "retries",
+              "degraded", "extra_cycles", "banks"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_bf16_nan_bits_survive_gathers_on_card(cuda_device):
+    bits = np.array([[0x7FC0, 0x3F80, 0xC000, 0xFFC0, 0x3F00]], np.uint16)
+    x = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+    for fn in (lambda t: rs.sort_values(t)[0],
+               lambda t: ops.topk(t, 4)[0],
+               lambda t: tsort.topk(t, 4, engine="torch")[0]):
+        got = fn(x.to(cuda_device)).cpu().view(torch.int16)
+        assert torch.equal(got, fn(x).view(torch.int16))

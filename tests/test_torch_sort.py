@@ -25,7 +25,9 @@ FMT_DATA = {
     "float": (lambda r, s: r.standard_normal(s).astype(np.float16), 16),
 }
 # reference engine -> the port's engine of the same function
-ENGINE_MAP = {"pallas-tns": "fused-tns", "tns-oracle": "tns-oracle",
+ENGINE_MAP = {"tns": "tns", "ml": "ml", "mb": "mb", "bts": "bts",
+              "bitslice": "bitslice",
+              "pallas-tns": "fused-tns", "tns-oracle": "tns-oracle",
               "pallas-topk": "fused-topk", "radix": "radix"}
 
 
@@ -57,6 +59,13 @@ def _assert_same_result(got, want):
 def test_engine_matches_reference(ref_engine, fmt, shape, stop_after):
     x, width = _data(fmt, shape, seed=len(shape) * 7 + len(fmt))
     kw = dict(fmt=fmt, width=width, k=2, stop_after=stop_after)
+    if fmt not in jsort.get_engine(ref_engine).formats:
+        # bitslice runs unsigned data only, in both packages
+        with pytest.raises(ValueError, match="does not support fmt"):
+            tsort.sort(x, engine=ENGINE_MAP[ref_engine], device="cpu", **kw)
+        with pytest.raises(ValueError, match="does not support fmt"):
+            jsort.sort(x, engine=ref_engine, **kw)
+        return
     want = jsort.sort(x, engine=ref_engine, **kw)
     got = tsort.sort(x, engine=ENGINE_MAP[ref_engine], device="cpu", **kw)
     assert got.engine == ENGINE_MAP[ref_engine]
@@ -149,9 +158,12 @@ def test_infer_fmt_width_refuses_what_the_reference_refuses():
     assert str(got.value) == str(want.value)
 
 
-def test_default_engine_is_not_ported_yet():
-    with pytest.raises(KeyError, match="unknown sort engine 'tns'"):
-        tsort.sort(np.arange(4), device="cpu")
+@pytest.mark.parametrize("shape", [(30,), (3, 30)])
+def test_default_engine_is_tns(shape):
+    x, _ = _data("float", shape, seed=11)
+    got = tsort.sort(x, device="cpu")
+    assert got.engine == "tns" and got.strategy == "tns"
+    _assert_same_result(got, jsort.sort(x))
 
 
 def test_sort_refuses_to_run_without_a_card_unless_asked(monkeypatch):
@@ -165,7 +177,9 @@ def test_sort_refuses_to_run_without_a_card_unless_asked(monkeypatch):
 
 def test_registry_is_the_ports_own():
     names = sorted(tsort.engines())
-    assert names == ["fused-tns", "fused-topk", "radix", "tns-oracle"]
+    inner = ["bitslice", "bts", "fused-tns", "fused-topk", "mb", "mb-ft",
+             "ml", "radix", "tns", "tns-oracle"]
+    assert names == sorted(inner + ["resilient:" + n for n in inner])
     assert "fused-topk" not in jsort.engines()
     assert "fused-tns" not in jsort.engines()
     spec = tsort.get_engine("fused-tns")
@@ -202,13 +216,21 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import numpy as np
 from repro_torch import sort
-from repro_torch.core import cost, radix_select, ref_tns
+from repro_torch.core import (catns, cost, device_model, radix_select,
+                              ref_tns, tns)
 from repro_torch.kernels import (bitplane_pack, digit_read, fused_tns,
                                  masked_matmul, ops, radix_topk)
-for engine in ("fused-tns", "fused-topk", "radix"):
+from repro_torch.runtime import faults
+from repro_torch.sort import resilient
+for engine in ("tns", "ml", "mb", "bts", "bitslice", "fused-tns",
+               "fused-topk", "radix", "resilient:tns", "mb-ft"):
     res = sort.sort(np.array([3, 1, 2], np.uint8), engine=engine,
                     device="cpu")
     assert res.indices.tolist() == [1, 2, 0], (engine, res.indices)
+with faults.inject(faults.FaultSpec(ber=0.05, seed=1)):
+    res = sort.sort(np.array([3, 1, 2, 7, 5, 4], np.uint8),
+                    engine="resilient:tns", device="cpu")
+assert res.indices.tolist() == [1, 2, 0, 5, 4, 3], res.indices
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
