@@ -75,6 +75,30 @@ order; any failure raises and exits non-zero:
       rows, its whole batch held to ``resilient:tns``'s counts); ``mb-ft``
       over 4 banks with bank 1 dead on (1023,) float16, through the
       multi-bank machine over the 3 survivors;
+   l. serving at the reference's own bench configuration
+      (``benchmarks/bench_serve.py``: 40 requests, n 48, chunk 8, gap
+      0.05 us, max_batch 8): the continuous-batching orchestrator and the
+      one-shot loop, then the faulted point (6 requests,
+      ``FaultSpec(ber=0.01, seed=0)``, quality floor 0.99, verified
+      engines only), each on the card and on the host: every request
+      done, none failed, its indices numpy's stable argsort prefix; the
+      fused engines' kernels launched wherever the dispatcher picked them,
+      the top-k and key-pack kernels in any case;
+   m. serving at the paper's array width, n = 1024: 16 requests of all
+      five classes, chunk 1024, and the one-shot loop on the first 8, with
+      the same checks;
+   n. Dijkstra on the ``tns`` machine with the Fig. 5e statistics for the
+      four (src, dst) pairs: paths equal the comparison-based reference,
+      DRs, cycles and Fig. 5e counts equal the host run, 2-4 DRs a number;
+   o. in-situ pruning: ``tns_prune`` on 1024 weights at rate 0.3 with BER
+      0 and 0.01 equal to the host run; ``prune_params`` at rate 0.3 on
+      olmo-1b's MLP input stack, bfloat16 (16, 2048, 16384): masks equal
+      the host run bit for bit, weight sparsity within 0.05 of the rate,
+      dropped lanes zero;
+   p. the autotune table: ``sort(engine="fused-tns")`` timed on the six
+      cells of ``BENCH_pallas_tns.json``'s table, written to
+      ``build/BENCH_torch_fused_tns.json``, printed, and read back by
+      ``best_params`` and the serving dispatcher's wall prior;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -149,6 +173,7 @@ TOPK_SELECT_OPS_PER_KEY_COMPACT = 4
 TOPK_OPS_PER_COMPARE_EXCHANGE = 4
 # olmo-1b (src/repro/configs/olmo_1b.py): MLP widths and vocabulary
 OLMO_D_MODEL, OLMO_D_FF, OLMO_VOCAB = 2048, 8192, 50304
+OLMO_LAYERS = 16
 # card times before this slice's redesigns (PERF.md, kernel table: NVIDIA
 # H100 80GB HBM3, 700.00 W): the pruned matmul at olmo-1b's MLP (its WMMA
 # kernel, now the wmma form) and the digit read at (4096, 16, 1024) (its
@@ -1007,6 +1032,254 @@ def main() -> int:
           f"{got.repairs}, retries {got.retries}, extra cycles "
           f"{got.extra_cycles}, card {mbft_s:.3f} s", flush=True)
 
+    # ---- 4l-4p. this slice's paths: serving, Dijkstra, in-situ pruning,
+    # the autotune table; each driven with the counts set to 0 just before
+    from repro_torch import serving, tree
+    from repro_torch.graph import dijkstra
+    from repro_torch.kernels import autotune
+    from repro_torch.pruning import insitu
+    from repro_torch.serving import dispatch
+    new_t0 = time.perf_counter()
+    slice_launches = {name: 0 for name in mods}
+    phase_s = {}
+
+    def serve_arm(what, trace, *, kind="continuous", chunk=8, device=None,
+                  spec=None):
+        """One serving arm on ``device``: the report, the launches and the
+        seconds, every request completed with the stable order."""
+        zero_counts()
+        t0 = time.perf_counter()
+        if kind == "oneshot":
+            rep = serving.oneshot_loop(trace, device=device)
+        else:
+            orch = serving.Orchestrator(
+                clock=serving.SimulatedClock(), device=device,
+                cfg=serving.OrchestratorConfig(max_batch=8, chunk=chunk))
+            if spec is None:
+                rep = orch.run(trace)
+            else:
+                with faults.inject(spec):
+                    rep = orch.run(trace)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        where = "card" if device is None else "host"
+        expect(rep["completed"] == rep["accepted"] == len(trace)
+               and rep["failed"] == 0 and rep["expired"] == 0,
+               f"{what} on the {where}: {rep['completed']} of {len(trace)} "
+               f"completed, {rep['failed']} failed, {rep['expired']} "
+               "expired")
+        for r in trace:
+            expect(r.status is serving.Status.DONE and r.ascending,
+                   f"{what}: request {r.rid} {r.status}")
+            order = np.argsort(r.x, kind="stable")[:r.target]
+            expect(np.array_equal(r.indices, order), f"{what} on the "
+                   f"{where}: request {r.rid} ({r.engine}) != numpy's stable "
+                   "argsort prefix")
+        if spec is not None:
+            expect(all(e.startswith("resilient:") or e == "mb-ft"
+                       for e in rep["engines"]), f"{what}: an unverified "
+                   f"engine served the faulted array: {rep['engines']}")
+        if device is None:
+            for name, n in got.items():
+                slice_launches[name] += n
+            engines = rep["engines"]
+            expect(("fused-tns" not in engines or got["fused_tns"] > 0)
+                   and ("fused-topk" not in engines
+                        or min(got["radix_topk"], got["bitplane_pack"]) > 0),
+                   f"{what}: a fused engine ran without its kernels: "
+                   f"{engines}, launches {got}")
+        else:
+            expect(not any(got.values()), f"{what}: the host run launched "
+                   f"kernels {got}")
+        return rep, got, secs
+
+    def serve_point(what, make, arms):
+        """Card and host runs of each arm of one serving point, printed
+        side by side; returns the card runs' kernel launches summed."""
+        total = {name: 0 for name in mods}
+        for kind, kw in arms:
+            card, launched, card_s = serve_arm(f"{what} {kind}", make(kind),
+                                               kind=kind, **kw)
+            host, _, host_s = serve_arm(f"{what} {kind}", make(kind),
+                                        kind=kind, device="cpu", **kw)
+            for name, n in launched.items():
+                total[name] += n
+            sim = ("sim_us", "throughput_elems_per_us", "p50_latency_us",
+                   "p99_latency_us", "ticks", "mean_batch_occupancy")
+            print(f"{what} {kind}: card {card_s:.3f} s, launches {launched}; "
+                  "sim-time summary card / host: " + ", ".join(
+                      f"{k} {card[k]} / {host[k]}" for k in sim)
+                  + f"; engines card {card['engines']} / host "
+                  f"{host['engines']}; every request done, == numpy's "
+                  f"stable argsort prefix; host {host_s:.3f} s", flush=True)
+        return total
+
+    # 4l: the reference's own serving bench configuration
+    # (benchmarks/bench_serve.py: 40 requests, n 48, chunk 8, gap 0.05 us),
+    # then its faulted point
+    t0 = time.perf_counter()
+    bench = dict(n=48, mean_gap_us=0.05)
+    fault_spec = faults.FaultSpec(ber=0.01, seed=0)
+
+    def bench_trace(kind):
+        if kind == "faulted":
+            return serving.make_trace(
+                6, seed=1, classes=("bulk-latency", "float-latency"),
+                quality_floor=0.99, **bench)
+        return serving.make_trace(40, seed=0, **bench)
+
+    serve_l = serve_point("4l serving (40, n 48)", bench_trace, (
+        ("continuous", dict(chunk=8)), ("oneshot", {})))
+    faulted = serve_point("4l serving (40, n 48)", bench_trace, (
+        ("faulted", dict(chunk=8, spec=fault_spec)),))
+    for name, n in faulted.items():
+        serve_l[name] += n
+    expect(serve_l["radix_topk"] > 0 and serve_l["bitplane_pack"] > 0,
+           f"4l: the serving runs launched no fused-topk kernels {serve_l}")
+    print(f"4l serving launches in all: {serve_l}", flush=True)
+    phase_s["4l"] = time.perf_counter() - t0
+
+    # 4m: the paper's Table-S5 array width, all five request classes
+    t0 = time.perf_counter()
+
+    def wide_trace(kind):
+        trace = serving.make_trace(16, seed=0, n=1024, mean_gap_us=0.05)
+        return trace[:8] if kind == "oneshot" else trace
+
+    serve_m = serve_point("4m serving (16, n 1024)", wide_trace, (
+        ("continuous", dict(chunk=1024)), ("oneshot", {})))
+    # at n 1024 the first wall-class pick goes to fused-topk only where the
+    # committed autotune table gives fused-tns a prior above the generic
+    # throughput prior (a card with no row in it ties the two, and the tie
+    # goes to fused-tns, as the reference's goes to pallas-tns); the
+    # serving path as a whole must launch the top-k and key-pack kernels
+    print(f"4m serving launches in all: {serve_m}; the fused TNS wall prior "
+          f"from the committed table: {dispatch._fused_tns_wall_prior()}",
+          flush=True)
+    expect(min(serve_l["radix_topk"] + serve_m["radix_topk"],
+               serve_l["bitplane_pack"] + serve_m["bitplane_pack"]) > 0,
+           "4l-4m: the serving runs launched no fused-topk kernels")
+    phase_s["4m"] = time.perf_counter() - t0
+
+    # 4n: Dijkstra on the tns machine with the Fig. 5e statistics
+    t0 = time.perf_counter()
+    zero_counts()
+    for src, dst in ((0, 13), (3, 15), (5, 12), (15, 0)):
+        got = dijkstra.shortest_path(src, dst, k=2, engine="tns")
+        want = dijkstra.shortest_path(src, dst, k=2, engine="tns",
+                                      device="cpu")
+        expect(got.path == dijkstra.reference_shortest_path(src, dst)[1],
+               f"4n: path {src} -> {dst} {got.path}")
+        for f in ("path", "total_drs", "total_cycles", "fig5e_drs",
+                  "fig5e_numbers", "numbers_sorted"):
+            expect(getattr(got, f) == getattr(want, f),
+                   f"4n {src} -> {dst}: {f} != the host run's")
+        expect(2.0 <= got.fig5e_drs_per_number <= 4.0,
+               f"4n: Fig. 5e DRs a number {got.fig5e_drs_per_number}")
+        print(f"4n dijkstra {src} -> {dst}: path {got.path} == the "
+              f"reference path and the host run; DRs {got.total_drs}, "
+              f"cycles {got.total_cycles}, Fig. 5e {got.fig5e_drs} DRs over "
+              f"{got.fig5e_numbers} numbers = "
+              f"{got.fig5e_drs_per_number:.4f} a number; launches {counts()}",
+              flush=True)
+    phase_s["4n"] = time.perf_counter() - t0
+
+    # 4o: in-situ pruning, cycle-faithful and over olmo-1b's MLP stack
+    t0 = time.perf_counter()
+    zero_counts()
+    wts = np.random.default_rng(9).standard_normal(1024)
+    for ber in (0.0, 0.01):
+        got = insitu.tns_prune(wts, PRUNE_RATE, ber=ber, seed=3)
+        want = insitu.tns_prune(wts, PRUNE_RATE, ber=ber, seed=3,
+                                device="cpu")
+        expect(np.array_equal(got[0], want[0]) and got[1:] == want[1:],
+               f"4o tns_prune BER {ber}: != the host run")
+        expect(len(got[0]) == round(PRUNE_RATE * 1024), "4o: prune count")
+        print(f"4o tns_prune (1024,) rate {PRUNE_RATE} BER {ber}: "
+              f"{len(got[0])} located, cycles {got[1]}, DRs {got[2]} == the "
+              "host run", flush=True)
+    wi = torch.randn(OLMO_LAYERS, OLMO_D_MODEL, 2 * OLMO_D_FF, generator=tgen,
+                     device=dev).to(torch.bfloat16)
+    stack = {"segments": [{"mlp": {"wi": wi}}]}
+    mkey = "['segments'][0]['mlp']['wi']"
+    prune_t0 = time.perf_counter()
+    new_p, pstats = insitu.prune_params(stack, None, PRUNE_RATE)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - prune_t0
+    prune_launches = counts()
+    keep_o = pstats["masks"][mkey]
+    host_stack = tree.map_with_path(lambda _, t: t.cpu(), stack)
+    host_t0 = time.perf_counter()
+    host_p, host_stats = insitu.prune_params(host_stack, None, PRUNE_RATE)
+    host_prune_s = time.perf_counter() - host_t0
+    expect(torch.equal(keep_o.cpu(), host_stats["masks"][mkey]),
+           "4o prune_params: masks != the host run")
+    expect(pstats["weight_sparsity"] == host_stats["weight_sparsity"]
+           and abs(pstats["weight_sparsity"] - PRUNE_RATE) <= 0.05,
+           f"4o prune_params: sparsity {pstats['weight_sparsity']}")
+    wo = new_p["segments"][0]["mlp"]["wi"]
+    expect(not bool(wo[~keep_o].any()), "4o: a dropped lane is not zero")
+    expect(torch.equal(wo[keep_o], wi[keep_o]), "4o: a kept lane changed")
+    expect(torch.equal(wo.cpu(), host_p["segments"][0]["mlp"]["wi"]),
+           "4o: pruned weights != the host run")
+    print(f"4o prune_params {mkey} bf16 {tuple(wi.shape)} "
+          f"({wi.numel() * 2 / 2**30:.2f} GiB) rate {PRUNE_RATE}: card "
+          f"{prune_s:.3f} s, host {host_prune_s:.3f} s; masks == the host "
+          f"run bit for bit, weight sparsity {pstats['weight_sparsity']}, "
+          f"dropped lanes zero; launches {prune_launches}", flush=True)
+    del wi, stack, new_p, wo, host_stack, host_p
+    phase_s["4o"] = time.perf_counter() - t0
+
+    # 4p: the autotune table at BENCH_pallas_tns.json's six cells, written
+    # to build/ and read back
+    t0 = time.perf_counter()
+    zero_counts()
+    cells = [dict(fmt="unsigned", width=16, n=n_, m=m_, b=b_)
+             for n_, m_, b_ in ((1024, 1, 64), (1024, 2, 64), (256, 1, 64),
+                                (256, 8, 64), (256, 32, 64), (4096, 1, 16))]
+    table = autotune.sweep(cells, reps=3)
+    tune_launches = counts()
+    expect(tune_launches["fused_tns"] == 4 * len(cells),
+           f"4p: fused_tns launches {tune_launches}")
+    table_path = ROOT / "build" / autotune.BENCH_ARTIFACT
+    table_path.parent.mkdir(exist_ok=True)
+    autotune.save_table(table, table_path)
+    expect(autotune.load_table(table_path) == table, "4p: table round trip")
+    for cell in cells:
+        key = autotune.cell_key(cell["fmt"], cell["n"], cell["m"], cell["b"])
+        expect(autotune.nearest_cell(cell["fmt"], cell["n"], cell["m"],
+                                     cell["b"], table=table) == key
+               and autotune.best_params(cell["fmt"], cell["n"], cell["m"],
+                                        cell["b"], table=table)
+               == autotune.DEFAULT_PARAMS, f"4p: {key} not read back")
+    per_emission = sorted(row["us"] / (int(k.split("|")[2][1:])
+                                       * int(k.split("|")[3][1:]))
+                          for k, row in table.items())
+    real_default = autotune.default_table
+    autotune.default_table = lambda: table
+    try:
+        prior = dispatch._fused_tns_wall_prior()
+        d_prior = dispatch.Dispatcher()._fused_tns_prior
+    finally:
+        autotune.default_table = real_default
+    expect(prior == d_prior == per_emission[len(per_emission) // 2],
+           f"4p: the dispatcher's prior {prior} != the table's median")
+    committed = dispatch._fused_tns_wall_prior()
+    for name, n in tune_launches.items():
+        slice_launches[name] += n
+    print(f"4p autotune table (written to {table_path.relative_to(ROOT)}, "
+          f"read back by best_params and the dispatcher's prior, "
+          f"{prior:.4f} us an emission; the committed table's prior "
+          f"{committed}); launches {tune_launches}", flush=True)
+    print("autotune " + json.dumps(json.loads(table_path.read_text()),
+                                   sort_keys=True), flush=True)
+    phase_s["4p"] = time.perf_counter() - t0
+    print("phases 4l-4p: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in phase_s.items())
+          + f"; {time.perf_counter() - new_t0:.1f} s together; launches on "
+          f"the card in all {slice_launches}", flush=True)
+
     # ---- 5. times
     B, W, N = planes.shape
     fused_ms = cuda_ms(lambda: fused_tns.fused_tns_rank(
@@ -1301,7 +1574,8 @@ def main() -> int:
         {"name": "fused_tns", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_tns.cu",
          "replaces": "src/repro/kernels/fused_tns.py:155",
-         "launches": launches["fused_tns"] + fused_fault_launches,
+         "launches": (launches["fused_tns"] + fused_fault_launches
+                      + slice_launches["fused_tns"]),
          "max_abs_err": float(err["fused_tns"]), "ms": fused_ms,
          "plain_ms": plain_s * 1e3, "bound_ms": fwb[0], "bound_by": fwb[1],
          "library_ms": lib_ms},
@@ -1315,14 +1589,16 @@ def main() -> int:
         {"name": "bitplane_pack", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_pack.cu",
          "replaces": "src/repro/kernels/bitplane_pack.py:19",
-         "launches": topk_launches["bitplane_pack"],
+         "launches": (topk_launches["bitplane_pack"]
+                      + slice_launches["bitplane_pack"]),
          "max_abs_err": float(err["bitplane_pack"]), "ms": pack_ms,
          "plain_ms": pack_plain_ms, "bound_ms": pb[0], "bound_by": pb[1],
          "library_ms": None},
         {"name": "radix_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/radix_topk.cu",
          "replaces": "src/repro/kernels/radix_topk.py:37",
-         "launches": topk_launches["radix_topk"],
+         "launches": (topk_launches["radix_topk"]
+                      + slice_launches["radix_topk"]),
          "max_abs_err": float(err["radix_topk"]), "ms": topk_ms,
          "plain_ms": topk_plain_ms, "bound_ms": kb[0], "bound_by": kb[1],
          "library_ms": topk_lib_ms},

@@ -17,13 +17,14 @@ same permutation as the reference package's engine it ports:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import bitplane as bp
 from repro_torch.core import catns
 from repro_torch.core import radix_select as rs
 from repro_torch.core import ref_tns as rt
 from repro_torch.core import tns as tt
-from repro_torch.kernels import fused_tns, radix_topk
+from repro_torch.kernels import bitplane_pack, fused_tns, radix_topk
 from repro_torch.sort.registry import register
 from repro_torch.sort.result import SortResult
 
@@ -225,22 +226,55 @@ def _radix(x, *, width, fmt, k, ascending, level_bits, stop_after, device,
                    width=width, stop_after=stop_after)
 
 
+# minima the fused top-k engine extracts per call
+FUSED_TOPK_MAX = 32
+
+# numpy dtypes whose values the pack kernel turns into order-preserving
+# keys on the device: float32 as it is (fmt float, width 32), the integer
+# dtypes widened to int32, which holds them exactly (fmt unsigned or twos
+# at the dtype's width)
+_PACK_ON_DEVICE = {np.dtype(np.float32): bp.FLOAT}
+_PACK_ON_DEVICE.update({np.dtype(t): bp.UNSIGNED
+                        for t in (np.uint8, np.uint16)})
+_PACK_ON_DEVICE.update({np.dtype(t): bp.TWOS
+                        for t in (np.int8, np.int16, np.int32)})
+
+
+def _device_keys(x, width, fmt, ascending, device):
+    """int32 tensor of uint32 key bits on ``device`` whose order and ties
+    are those of :func:`_unsigned_keys`: where the pack kernel takes the
+    dtype, the values are copied in and packed on the device (two strictly
+    increasing maps of the values give the same order and the same ties),
+    else the host's keys are copied in."""
+    x = np.asarray(x)
+    if (_PACK_ON_DEVICE.get(x.dtype) == fmt
+            and width == 8 * x.dtype.itemsize):
+        vals = x if x.dtype == np.float32 else x.astype(np.int32)
+        keys = bitplane_pack.pack_keys(
+            torch.from_numpy(np.array(vals, order="C")).to(device))
+        return keys if ascending else ~keys
+    return bp.keys_from_numpy(
+        _unsigned_keys(x, width, fmt, ascending).astype(np.uint32),
+        device=device)
+
+
 @register("fused-topk", mode="throughput", supports_stop_after=True,
           supports_batch=True,
           description="Fused top-k kernel: the k smallest emitted in order, "
                       "as iterated radix-2^4 min-searches find them (CUDA "
-                      "warp argmin)")
+                      "warp argmin; float32 and integer keys packed on the "
+                      "device)")
 def _fused_topk(x, *, width, fmt, k, ascending, level_bits, stop_after,
                 device):
-    keys = _unsigned_keys(x, width, fmt, ascending).astype(np.uint32)
     m = x.shape[-1] if stop_after is None else min(stop_after, x.shape[-1])
-    if m > 32:
+    if m > FUSED_TOPK_MAX:
         # the kernel runs m min-searches a row: a top-m engine, not a full
         # sorter (the router hot path is m <= 8)
         raise NotImplementedError(
-            f"fused-topk extracts at most 32 minima per call (asked {m}); "
-            "use stop_after, or the 'radix' engine for full sorts")
-    kb = bp.keys_from_numpy(keys, device=device)
+            f"fused-topk extracts at most {FUSED_TOPK_MAX} minima per call "
+            f"(asked {m}); use stop_after, or the 'radix' engine for full "
+            "sorts")
+    kb = _device_keys(x, width, fmt, ascending, device)
     squeeze = kb.ndim == 1
     if squeeze:
         kb = kb[None]

@@ -379,3 +379,107 @@ def test_bf16_nan_bits_survive_gathers_on_card(cuda_device):
                lambda t: tsort.topk(t, 4, engine="torch")[0]):
         got = fn(x.to(cuda_device)).cpu().view(torch.int16)
         assert torch.equal(got, fn(x).view(torch.int16))
+
+
+def _fake_time():
+    import itertools
+    import types
+    ticks = itertools.count()
+    return types.SimpleNamespace(perf_counter=lambda: next(ticks) * 1e-4)
+
+
+@pytest.mark.cuda
+def test_serving_trace_on_card_equals_its_host_run(cuda_device,
+                                                   monkeypatch):
+    # the wall-time EWMA and the fused TNS prior are pinned, so that the
+    # card run and the host run dispatch alike; the card run must launch
+    # the top-k and key-pack kernels through fused-topk
+    from repro_torch import serving
+    from repro_torch.serving import dispatch, orchestrator
+    monkeypatch.setattr(dispatch, "_fused_tns_wall_prior",
+                        lambda device=None: 5.0)
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        monkeypatch.setattr(orchestrator, "time", _fake_time())
+        trace = serving.make_trace(10, seed=0, n=48, mean_gap_us=0.05)
+        orch = serving.Orchestrator(
+            clock=serving.SimulatedClock(),
+            cfg=serving.OrchestratorConfig(chunk=8), device=dev)
+        launches = (radix_topk.LAUNCHES, bitplane_pack.LAUNCHES)
+        rep = orch.run(trace)
+        runs.append((rep, trace, (radix_topk.LAUNCHES - launches[0],
+                                  bitplane_pack.LAUNCHES - launches[1])))
+    (got, trace, card_launches), (want, host_trace, host_launches) = runs
+    assert got["completed"] == 10 and got["failed"] == 0
+    assert got["engines"].get("fused-topk", 0) > 0
+    assert min(card_launches) > 0 and host_launches == (0, 0)
+    got.pop("wall_ms"), want.pop("wall_ms")
+    assert got == want
+    for a, b in zip(trace, host_trace):
+        assert (a.engine, a.status, a.cycles, a.finish_us) == \
+            (b.engine, b.status, b.cycles, b.finish_us)
+        assert np.array_equal(a.indices, b.indices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.uint16, np.int8,
+                                   np.float16])
+def test_fused_topk_engine_keys_on_card(cuda_device, dtype):
+    # float32 and integer payloads are packed on the card; float16 keys
+    # come from the host
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((5, 300)) * 100).astype(dtype)
+    x[1] = x[1, 0]
+    packs = bitplane_pack.LAUNCHES
+    for asc in (True, False):
+        got = tsort.sort(x, engine="fused-topk", stop_after=17,
+                         ascending=asc)
+        want = tsort.sort(x, engine="fused-topk", stop_after=17,
+                          ascending=asc, device="cpu")
+        assert np.array_equal(got.indices, want.indices)
+    assert (bitplane_pack.LAUNCHES > packs) == (dtype != np.float16)
+
+
+@pytest.mark.cuda
+def test_applications_on_card_equal_their_host_runs(cuda_device):
+    from repro_torch import tree
+    from repro_torch.graph import dijkstra
+    from repro_torch.pruning import insitu
+    for src, dst in [(0, 13), (15, 0)]:
+        got = dijkstra.shortest_path(src, dst, engine="tns")
+        want = dijkstra.shortest_path(src, dst, engine="tns", device="cpu")
+        assert got.path == want.path == dijkstra.reference_shortest_path(
+            src, dst)[1]
+        assert (got.total_drs, got.total_cycles, got.fig5e_drs) == \
+            (want.total_drs, want.total_cycles, want.fig5e_drs)
+    w = np.random.default_rng(7).standard_normal(256)
+    for ber in (0.0, 0.01):
+        got = insitu.tns_prune(w, 0.3, ber=ber)
+        want = insitu.tns_prune(w, 0.3, ber=ber, device="cpu")
+        assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+    wi = np.random.default_rng(8).standard_normal((2, 64, 96)).astype(
+        np.float32)
+    params = {"segments": [{"mlp": {"wi": wi, "wo": wi[:, :32]}}]}
+    got_p, got = insitu.prune_params(
+        tree.params_from_numpy(params, cuda_device), None, 0.3)
+    want_p, want = insitu.prune_params(
+        tree.params_from_numpy(params, "cpu"), None, 0.3)
+    key = "['segments'][0]['mlp']['wi']"
+    assert torch.equal(got["masks"][key].cpu(), want["masks"][key])
+    assert got["weight_sparsity"] == want["weight_sparsity"]
+    assert torch.equal(got_p["segments"][0]["mlp"]["wi"].cpu(),
+                       want_p["segments"][0]["mlp"]["wi"])
+
+
+@pytest.mark.cuda
+def test_autotune_cell_on_card(cuda_device):
+    from repro_torch.kernels import autotune
+    launches = fused_tns.LAUNCHES
+    table = autotune.sweep([dict(fmt="unsigned", width=16, n=256, m=8,
+                                 b=4)], reps=2)
+    assert fused_tns.LAUNCHES - launches == 3
+    (key, row), = table.items()
+    name = torch.cuda.get_device_name(0)
+    assert key.startswith("unsigned|N256|m8|B4|" + name + "/sm_")
+    assert row["us"] > 0
+    assert autotune.nearest_cell("unsigned", 256, 8, 4, table=table) == key
