@@ -99,6 +99,24 @@ order; any failure raises and exits non-zero:
       cells of ``BENCH_pallas_tns.json``'s table, written to
       ``build/BENCH_torch_fused_tns.json``, printed, and read back by
       ``best_params`` and the serving dispatcher's wall prior;
+   q. the model zoo's serving path: ``launch.serve.main(["--oneshot",
+      "--arch", "qwen2_moe_a2_7b", "--full-size", "--router-impl",
+      "pallas", ...])`` in-process at qwen2-moe-a2.7b's published widths
+      and full depth (24 layers, bfloat16, 26.67 GiB of weights, printed
+      before allocating), batch 4, prompt 16, 32 new tokens, top-32
+      sampling, 30 % in-situ pruning: every logit finite, every sampled
+      token inside its step's top-32, the key-pack and top-k kernels
+      launched 24 times a forward; router parity: a prefill and 8
+      teacher-forced decode steps under ``pallas`` (fused-topk),
+      ``radix`` and ``lax`` (torch) on one set of weights give the same
+      expert indices and bit-equal logits; the head's float32-output
+      product against the widened product; prefill and decode times, the
+      decode step's device busy time and idle share from the profiler;
+      float32 decode against forward at full width and 4 layers within
+      rtol = atol = 3e-3 (12 positions, no capacity drops); olmo-1b at full
+      size through the CLI with ``--prune 0.3 --top-k 50``, its prune
+      masks equal to the host's on a copy of the same weights, and its
+      float32 decode against forward at 4 layers;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -274,6 +292,342 @@ def topk_edge_rows(rng, n: int, k: int):
     a[4] = (rng.integers(0, 3, n) << 4 | rng.integers(0, 16, n)) + 0x7000
     a[5, n - 9:] = 0
     return a
+
+
+# phase 4q: qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2_7b.py) served at
+# its published widths and full depth, and olmo-1b at full size
+QWEN_ARCH, QWEN_LAYERS = "qwen2_moe_a2_7b", 24
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "16", "--max-new", "32"]
+PARITY_DECODE_STEPS = 8
+# the float32 decode-against-forward check: a cut depth, 12 positions, the
+# reference's tolerance (tests/test_models.py)
+F32_LAYERS, F32_POSITIONS, F32_TOL = 4, 12, 3e-3
+TIMED_DECODE_STEPS = 16
+
+
+def phase_4q(card: str, zero_counts, counts) -> dict:
+    """The model zoo's serving path on the card: the ``--oneshot`` CLI at
+    qwen2-moe-a2.7b's full widths and depth through the fused top-k router,
+    router parity across the three engines, float32 decode against forward
+    at a cut depth, olmo-1b at full size with its prune masks held to the
+    host's.  Returns the kernel launches of the runs that count (the CLI
+    and the fused-topk runs) and the times."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import accounting, moe, sampling, stacked
+    from repro_torch.models.layers import matmul_f32
+    from repro_torch.pruning import insitu
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    qcfg = configs.get_config(QWEN_ARCH)
+    expect(qcfg.n_layers == QWEN_LAYERS and qcfg.moe_capacity_factor == 1.25,
+           "4q: qwen2-moe config")
+    launched = {"radix_topk": 0, "bitplane_pack": 0}
+    out = {}
+
+    def add(got):
+        for name in launched:
+            launched[name] += got[name]
+
+    def cli(arch, top_k, *extra):
+        """One in-process run of the serving CLI; every sampled token is
+        checked to lie in its step's top-k and every logit to be finite.
+        Returns (result, launches, seconds)."""
+        steps_seen = []
+        real = sampling.sample_logits
+
+        def record(logits, gen, k=0, temperature=1.0):
+            tok = real(logits, gen, k, temperature)
+            expect(bool(torch.isfinite(logits).all()),
+                   f"4q {arch}: a logit is not finite")
+            kth = torch.topk(logits.float(), top_k, dim=-1).values[:, -1]
+            picked = logits.float().gather(1, tok.long()[:, None])[:, 0]
+            expect(bool((picked >= kth).all()), f"4q {arch}: a sampled "
+                   f"token lies outside its step's top-{top_k}")
+            steps_seen.append(tok)
+            return tok
+
+        sampling.sample_logits = record
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            res = serve.main(["--oneshot", "--arch", arch, "--full-size",
+                              *SERVE_ARGS, "--top-k", str(top_k), *extra])
+        finally:
+            sampling.sample_logits = real
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        expect(len(steps_seen) == 32 and res["tokens"].shape == (4, 48),
+               f"4q {arch}: {len(steps_seen)} sampling steps, tokens "
+               f"{res['tokens'].shape}")
+        return res, got, secs
+
+    # ---- the CLI at qwen2-moe's full widths, the router on the kernels
+    print(f"4q {QWEN_ARCH}: {accounting.param_count(qcfg)} parameters, "
+          f"param_bytes {accounting.param_bytes(qcfg)} "
+          f"({accounting.param_bytes(qcfg) / 2**30:.2f} GiB) before "
+          "allocating", flush=True)
+    res, got, secs = cli(QWEN_ARCH, 32, "--router-impl", "pallas",
+                         "--prune", "0.3")
+    forwards = 32
+    for name in launched:
+        expect(got[name] == QWEN_LAYERS * forwards, f"4q CLI: {name} "
+               f"launched {got[name]} times, not {QWEN_LAYERS} x {forwards}")
+    add(got)
+    print(f"4q serve --oneshot {QWEN_ARCH} --full-size --router-impl pallas "
+          f"{' '.join(SERVE_ARGS)} --top-k 32 --prune 0.3: {secs:.1f} s in "
+          f"all (init, prune, prefill, 31 decode steps); launches {got} == "
+          f"{QWEN_LAYERS} x {forwards}; every logit finite, every sampled "
+          f"token inside its step's top-32; CLI's prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- router parity on one set of weights: prefill + 8 teacher-forced
+    # decode steps under each engine, bit for bit
+    t0 = time.perf_counter()
+    params = stacked.init_params(
+        qcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    rng = np.random.default_rng(1)
+    batch, plen = 4, 16
+    prompt = torch.as_tensor(rng.integers(0, qcfg.vocab, (batch, plen)),
+                             dtype=torch.int32, device=dev)
+    forced = torch.as_tensor(
+        rng.integers(0, qcfg.vocab, (batch, PARITY_DECODE_STEPS)),
+        dtype=torch.int32, device=dev)
+    real_route = moe.route_topk
+    runs = {}
+    for impl in ("pallas", "radix", "lax"):
+        cfg = dataclasses.replace(qcfg, router_impl=impl)
+        picks = []
+
+        def route(logits, k, name, picks=picks):
+            gates, idx = real_route(logits, k, name)
+            picks.append(idx)
+            return gates, idx
+
+        prefill = steps.make_prefill_step(cfg)
+        decode = steps.make_decode_step(cfg)
+        caches = stacked.init_cache(cfg, batch, plen + PARITY_DECODE_STEPS,
+                                    dev)
+        moe.route_topk = route
+        zero_counts()
+        try:
+            logits = [prefill(params, prompt, caches)[0]]
+            for i in range(PARITY_DECODE_STEPS):
+                pos = torch.full((batch,), plen + i, dtype=torch.int32,
+                                 device=dev)
+                logits.append(decode(params, forced[:, i:i + 1], pos,
+                                     caches)[0])
+        finally:
+            moe.route_topk = real_route
+        torch.cuda.synchronize()
+        got = counts()
+        if impl == "pallas":
+            n_fwd = 1 + PARITY_DECODE_STEPS
+            for name in launched:
+                expect(got[name] == QWEN_LAYERS * n_fwd, f"4q parity: "
+                       f"{name} launched {got[name]}, not {QWEN_LAYERS} x "
+                       f"{n_fwd}")
+            add(got)
+        else:
+            expect(not any(got.values()), f"4q parity {impl}: launched "
+                   f"kernels {got}")
+        expect(len(picks) == QWEN_LAYERS * (1 + PARITY_DECODE_STEPS),
+               f"4q parity {impl}: {len(picks)} router calls")
+        expect(all(bool(torch.isfinite(lg).all()) for lg in logits),
+               f"4q parity {impl}: a logit is not finite")
+        runs[impl] = (logits, picks)
+    base_logits, base_picks = runs["pallas"]
+    for impl in ("radix", "lax"):
+        lg, pk = runs[impl]
+        expect(all(torch.equal(a, b) for a, b in zip(pk, base_picks)),
+               f"4q parity: {impl}'s expert indices != fused-topk's")
+        expect(all(torch.equal(a, b) for a, b in zip(lg, base_logits)),
+               f"4q parity: {impl}'s logits != fused-topk's bit for bit")
+    print(f"4q router parity {QWEN_ARCH} (4, 16) prefill + "
+          f"{PARITY_DECODE_STEPS} teacher-forced decode steps: expert "
+          "indices and logits of radix and lax (torch) == pallas "
+          f"(fused-topk) bit for bit; fused-topk launched {QWEN_LAYERS} of "
+          f"each kernel a forward; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del runs, base_logits, base_picks, lg, pk, logits
+
+    # float32 logits from bfloat16 operands: the head through cuBLAS's
+    # float32-output product, against the widened product
+    x = torch.randn(batch, 1, qcfg.d_model, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev).to(torch.bfloat16)
+    head = params["embed"]["head"]
+    f32 = matmul_f32(x, head)
+    wide = x.float() @ head.float()
+    rounded = (x @ head).float()
+    d_wide = (f32 - wide).abs().max().item()
+    d_round = (rounded - wide).abs().max().item()
+    expect(f32.dtype == torch.float32 and d_wide <= 1e-3 * wide.abs().max()
+           and d_wide < d_round, f"4q: float32-output head product differs "
+           f"from the widened product by {d_wide} (bf16-rounded: {d_round})")
+    print(f"4q head (4, 1, 2048) @ (2048, 151936) bf16 -> float32: max |out "
+          f"- widened product| {d_wide:.3e}; a bf16 product rounded "
+          f"{d_round:.3e}", flush=True)
+
+    # ---- times: prefill and decode on the host clock after the warm-up
+    # runs above; the decode steps' stream time by CUDA events, and the
+    # device's busy time from the profiler's kernel intervals
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(qcfg, router_impl="pallas")
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    max_len = plen + 1 + 2 * TIMED_DECODE_STEPS
+    caches = stacked.init_cache(cfg, batch, max_len, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, prompt, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    pos = torch.full((batch,), plen, dtype=torch.int32, device=dev)
+    decode(params, tok, pos, caches)              # warm-up step
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TIMED_DECODE_STEPS):
+        logits, _ = decode(params, tok, pos + 1 + i, caches)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    stop.record()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    # a step issues ~3500 launches: more than the stream's launch queue
+    # holds, so queueing the steps behind a sleep would not take the host
+    # out of the event times; the profiler's kernel intervals give the
+    # device's busy time instead
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(TIMED_DECODE_STEPS):
+            logits, _ = decode(params, tok,
+                               pos + 1 + TIMED_DECODE_STEPS + i, caches)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    expect(len(kernels) > 0, "4q: the profiler saw no kernel")
+    busy_us, edge, by_name = 0.0, kernels[0][0], {}
+    for a, b, name in kernels:
+        busy_us += max(0.0, b - max(a, edge))
+        edge = max(edge, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    span_us = edge - kernels[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out["prefill_ms"] = prefill_ms
+    out["decode_tok_per_s"] = batch * TIMED_DECODE_STEPS / decode_s
+    out["decode_step_host_ms"] = decode_s / TIMED_DECODE_STEPS * 1e3
+    out["decode_step_events_ms"] = (start.elapsed_time(stop)
+                                    / TIMED_DECODE_STEPS)
+    out["decode_step_busy_ms"] = busy_us / 1e3 / TIMED_DECODE_STEPS
+    out["decode_idle_share"] = 1 - busy_us / span_us
+    print(f"[{card}] 4q {QWEN_ARCH} full size bf16, batch 4, fused-topk "
+          f"router: prefill (16 tokens a row) {prefill_ms:.2f} ms host clock; "
+          f"decode {out['decode_tok_per_s']:.1f} tok/s host clock "
+          f"({out['decode_step_host_ms']:.2f} ms a step over "
+          f"{TIMED_DECODE_STEPS} steps after one warm-up); a decode step's "
+          f"stream time by CUDA events {out['decode_step_events_ms']:.2f} ms "
+          f"(host-paced), device busy {out['decode_step_busy_ms']:.2f} ms "
+          f"(profiler: {len(kernels) // TIMED_DECODE_STEPS} kernels a step, "
+          f"idle share {out['decode_idle_share']:.3f})", flush=True)
+    print(f"[{card}] 4q decode step, kernel time a step by name: " + "; ".join(
+        f"{name[:60]} {us / 1e3 / TIMED_DECODE_STEPS:.3f} ms"
+        for name, us in top), flush=True)
+    del params, caches, logits
+    torch.cuda.empty_cache()
+
+    # ---- float32 decode against forward at full width, cut depth
+    def decode_vs_forward(arch, router=None):
+        cfg = dataclasses.replace(
+            configs.get_config(arch), n_layers=F32_LAYERS,
+            param_dtype="float32", compute_dtype="float32",
+            moe_capacity_factor=None,
+            router_impl=router or configs.get_config(arch).router_impl)
+        p = stacked.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(3), dev)
+        toks = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab, (2, F32_POSITIONS)), device=dev)
+        zero_counts()
+        full, _, _ = stacked.forward(p, cfg, toks)
+        caches = stacked.init_cache(cfg, 2, F32_POSITIONS + 4, dev)
+        outs = []
+        for t in range(F32_POSITIONS):
+            lg, caches = stacked.decode_step(
+                p, cfg, toks[:, t:t + 1],
+                torch.full((2,), t, dtype=torch.int32, device=dev), caches)
+            outs.append(lg)
+        torch.cuda.synchronize()
+        got = counts()
+        dec = torch.cat(outs, dim=1)
+        diff = (dec - full).abs()
+        over = (diff - (F32_TOL + F32_TOL * full.abs())).max().item()
+        expect(bool(torch.isfinite(full).all()) and over <= 0, f"4q "
+               f"{arch} float32 decode vs forward: exceeds rtol = atol = "
+               f"{F32_TOL} by {over}")
+        print(f"4q {arch} float32 at full width, {F32_LAYERS} layers "
+              f"(param_bytes {accounting.param_bytes(cfg)}), 2 x "
+              f"{F32_POSITIONS} positions: token-by-token decode == forward "
+              f"within rtol = atol = {F32_TOL} (max |diff| "
+              f"{diff.max().item():.3e}); launches {got}", flush=True)
+        return got
+
+    got = decode_vs_forward(QWEN_ARCH, "pallas")
+    n_fwd = 1 + F32_POSITIONS
+    for name in launched:
+        expect(got[name] == F32_LAYERS * n_fwd, f"4q float32: {name} "
+               f"launched {got[name]}, not {F32_LAYERS} x {n_fwd}")
+    add(got)
+    torch.cuda.empty_cache()
+
+    # ---- olmo-1b at full size: the non-parametric norm and the pruned
+    # dense MLP; the masks made on the card == the host's on a copy
+    real_prune = insitu.prune_params
+    held = {}
+
+    def prune_and_check(params, cfg, rate):
+        new, stats = real_prune(params, cfg, rate)
+        host = {"segments": [{"mlp": {"wi": params["segments"][0]["mlp"][
+            "wi"].cpu()}}]}
+        _, hstats = real_prune(host, cfg, rate)
+        key = "['segments'][0]['mlp']['wi']"
+        expect(list(stats["masks"]) == [key] and torch.equal(
+            stats["masks"][key].cpu(), hstats["masks"][key]),
+            "4q olmo-1b: prune masks on the card != the host's")
+        expect(stats["weight_sparsity"] == hstats["weight_sparsity"],
+               "4q olmo-1b: weight sparsity != the host's")
+        held["sparsity"] = stats["weight_sparsity"]
+        return new, stats
+
+    insitu.prune_params = prune_and_check
+    try:
+        res, got, secs = cli("olmo_1b", 50, "--prune", "0.3")
+    finally:
+        insitu.prune_params = real_prune
+    expect(not any(got.values()), f"4q olmo-1b: launched kernels {got}")
+    print(f"4q serve --oneshot olmo_1b --full-size {' '.join(SERVE_ARGS)} "
+          f"--top-k 50 --prune 0.3: {secs:.1f} s; prune masks on the card == "
+          f"the host's on a copy bit for bit (weight sparsity "
+          f"{held['sparsity']}); every logit finite, every sampled token "
+          f"inside its step's top-50; CLI's prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    decode_vs_forward("olmo_1b")
+    print(f"[{card}] 4q peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    out["launches"] = launched
+    return out
 
 
 def main() -> int:
@@ -1279,6 +1633,16 @@ def main() -> int:
                                        for k, v in phase_s.items())
           + f"; {time.perf_counter() - new_t0:.1f} s together; launches on "
           f"the card in all {slice_launches}", flush=True)
+
+    # ---- 4q. the model zoo's serving path: qwen2-moe-a2.7b at full width
+    # and depth through the --oneshot CLI, router parity, float32 decode
+    # against forward, olmo-1b at full size
+    t0 = time.perf_counter()
+    serve_q = phase_4q(card, zero_counts, counts)
+    for name, n in serve_q["launches"].items():
+        slice_launches[name] += n
+    print(f"phase 4q: {time.perf_counter() - t0:.1f} s; launches of the "
+          f"counted runs {serve_q['launches']}", flush=True)
 
     # ---- 5. times
     B, W, N = planes.shape

@@ -1,0 +1,10 @@
+"""gemma-7b [dense] — GeGLU, head_dim=256. [arXiv:2403.08295; hf]"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="gemma-7b", family="dense",
+    n_layers=28, d_model=3072, vocab=256000,
+    n_heads=16, n_kv_heads=16, head_dim=256,
+    d_ff=24576, mlp_act="gelu",
+    rope_theta=1e4,
+)

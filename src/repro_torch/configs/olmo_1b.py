@@ -1,0 +1,10 @@
+"""olmo-1b [dense] — non-parametric LayerNorm. [arXiv:2402.00838; hf]"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="olmo-1b", family="dense",
+    n_layers=16, d_model=2048, vocab=50304,
+    n_heads=16, n_kv_heads=16,
+    d_ff=8192, norm="nonparam_ln", mlp_act="silu",
+    rope_theta=1e4,
+)

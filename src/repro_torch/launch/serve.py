@@ -1,30 +1,46 @@
 """Serving CLI — thin front-end over the port's serving subsystem.
 
-It runs the continuous-batching orchestrator (:mod:`repro_torch.serving`)
-on a deterministic synthetic request trace: async admission with
-backpressure, budget-aware engine dispatch over the port's sort registry,
-and sustained-throughput metrics (p50/p99 latency, batch occupancy,
-evictions) on a simulated device clock.  The engines run on the card
-unless ``--device cpu`` asks for the host.
+Default mode runs the continuous-batching orchestrator
+(:mod:`repro_torch.serving`) on a deterministic synthetic request trace:
+async admission with backpressure, budget-aware engine dispatch over the
+port's sort registry, and sustained-throughput metrics (p50/p99 latency,
+batch occupancy, evictions) on a simulated device clock.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 40 --n 48 \\
         --mean-gap-us 0.1 --out serve.json
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --requests 6 --n 32 --chunk 16 --fault-spec ber=0.01,seed=0
 
-``--fault-spec`` serves from an imperfect array.  The one-shot
-model-decode driver (``--oneshot``) needs the model zoo and is not ported
-yet.
+``--oneshot`` runs the model-decode loop: batched prefill + decode over
+the stacked model with the paper's technique in the loop (comparison-free
+top-k sampling through the sort-engine facade, engine-selectable MoE
+routing, optional in-situ pruning of the served weights).  Weights are
+random, drawn from ``--seed``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --oneshot \\
+        --arch qwen2_moe_a2_7b --device cpu --layers 2 --d-model 64 \\
+        --vocab 128 --batch 2 --prompt-len 4 --max-new 5 --top-k 8 \\
+        --prune 0.3 --router-impl pallas
+
+Both modes accept ``--fault-spec`` to serve from an imperfect array, and
+run on the card unless ``--device cpu`` asks for the host.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import time
 from typing import Dict, Optional
 
+import numpy as np
+import torch
+
 from repro_torch import serving, sort as sort_engine
+from repro_torch.kernels import backend
+from repro_torch.models.moe import ROUTER_ENGINES
 from repro_torch.runtime import faults
+from repro_torch.runtime.faults import run_step_with_retries
 
 
 def serve_requests(n_requests: int, *, n: int = 48, seed: int = 0,
@@ -73,13 +89,142 @@ def _print_report(report: Dict) -> None:
               f"votes={c['votes']} delays={c['delays']}")
 
 
+# ---------------------------------------------------------------------------
+# --oneshot: the prefill+decode model loop.
+# ---------------------------------------------------------------------------
+
+
+def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
+          prune_rate: float = 0.0, seed: int = 0, device=None) -> Dict:
+    """Batched prefill of a random prompt, then ``max_new - 1`` decode
+    steps with top-k sampling, over random weights drawn from ``seed`` on
+    ``device`` (``None``: the card).  Returns the tokens and the times."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import sampling, stacked
+    from repro_torch.pruning import insitu
+
+    dev = backend.resolve_device(device)
+    max_len = prompt_len + max_new
+    params = stacked.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+    if prune_rate > 0:
+        # the paper's in-situ pruning (§3.2): TNS locates the p% smallest
+        # magnitudes in each MLP input row-block at serve time (masking an
+        # input lane == zeroing its weight row, Algorithm S2)
+        params, pstats = insitu.prune_params(params, cfg, prune_rate)
+        print(f"[serve] in-situ pruned: weight sparsity "
+              f"{pstats['weight_sparsity']:.1%}")
+
+    prefill = steps_lib.make_prefill_step(cfg)
+    decode = steps_lib.make_decode_step(cfg)
+    # the reference's prompt: the same numpy draw from the same seed
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
+                             dtype=torch.int32, device=dev)
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+
+    caches = stacked.init_cache(cfg, batch, max_len, dev)
+    t0 = time.monotonic()
+    logits, caches = prefill(params, prompt, caches)
+    sync()
+    prefill_s = time.monotonic() - t0
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = sampling.sample_logits(logits[:, -1, :], gen, top_k)[:, None]
+    out = [prompt, tok]
+    pos = torch.full((batch,), prompt_len - 1, dtype=torch.int32, device=dev)
+    t0 = time.monotonic()
+    for _ in range(max_new - 1):
+        pos = pos + 1
+        logits, caches = decode(params, tok, pos, caches)
+        tok = sampling.sample_logits(logits[:, -1, :], gen, top_k)[:, None]
+        out.append(tok)
+    seq = torch.cat(out, dim=1).cpu().numpy()
+    decode_s = time.monotonic() - t0
+    return {
+        "tokens": seq,
+        "prefill_s": prefill_s,
+        "decode_tok_per_s": batch * (max_new - 1) / max(decode_s, 1e-9),
+        "pruned": prune_rate,
+    }
+
+
+def _oneshot_main(args) -> Dict:
+    from repro_torch import configs
+
+    if not args.arch:
+        raise SystemExit("--oneshot requires --arch")
+    cfg = configs.get_config(args.arch)
+    if args.router_impl:
+        cfg = dataclasses.replace(cfg, router_impl=args.router_impl)
+    if not args.full_size:
+        cfg = cfg.reduced(n_layers=args.layers, d_model=args.d_model,
+                          vocab=args.vocab)
+        if cfg.ssm_state:
+            cfg = dataclasses.replace(
+                cfg, ssm_chunk=min(cfg.ssm_chunk, args.prompt_len))
+    run = lambda: serve(cfg, args.batch, args.prompt_len, args.max_new,
+                        top_k=args.top_k, prune_rate=args.prune,
+                        seed=args.seed, device=args.device)
+    if args.fault_spec:
+        spec = faults.parse_spec(args.fault_spec)
+        counters = faults.FaultCounters()
+        probe_state: Dict = {}
+        probe_dev = backend.resolve_device(args.device)
+
+        def attempt():
+            with faults.inject(spec, counters=counters):
+                # pre-flight: a resilient sort on the faulted array; a
+                # degraded result means even the repair ladder cannot
+                # trust this array — retry (fresh read noise), then fail
+                probe = sort_engine.sort(
+                    np.arange(64, dtype=np.uint16)[::-1].copy(),
+                    engine="resilient:tns", device=probe_dev)
+                probe_state.update(
+                    quality=float(probe.quality), repairs=probe.repairs,
+                    retries=probe.retries, degraded=probe.degraded)
+                print(f"[serve] fault pre-flight: quality="
+                      f"{probe.quality:.3f} repairs={probe.repairs} "
+                      f"retries={probe.retries} degraded={probe.degraded}")
+                if probe.degraded:
+                    raise RuntimeError("fault pre-flight degraded")
+                return run()
+
+        res = run_step_with_retries(
+            attempt, retries=args.serve_retries, backoff_s=0.05,
+            on_retry=lambda i, e: print(f"[serve] retry {i + 1}: {e}"),
+            rng=np.random.default_rng(spec.seed))
+        # surface the winning attempt's degradation fields in the summary
+        res["probe"] = dict(probe_state)
+        print(f"[serve] fault counters: reads={counters.reads} "
+              f"faults={counters.faults_injected} "
+              f"corrected={counters.corrected} votes={counters.votes} "
+              f"delays={counters.delays}")
+    else:
+        res = run()
+    summary = (f"[serve] prefill {res['prefill_s']*1e3:.0f}ms, "
+               f"decode {res['decode_tok_per_s']:.1f} tok/s, "
+               f"prune={res['pruned']:.0%}")
+    probe = res.get("probe")
+    if probe:
+        summary += (f", degraded={probe['degraded']} "
+                    f"repairs={probe['repairs']} retries={probe['retries']} "
+                    f"quality={probe['quality']:.3f}")
+    print(summary)
+    print(f"[serve] first sequence: {res['tokens'][0][:24]}...")
+    return res
+
+
 def main(argv=None):
+    """The CLI; returns the one-shot run's result under ``--oneshot``
+    (tokens and times), else None."""
     ap = argparse.ArgumentParser(
-        description="continuous-batching serving loop over the port's "
-                    "sort engines")
+        description="continuous-batching serving loop (default) or the "
+                    "one-shot model-decode loop (--oneshot)")
     ap.add_argument("--oneshot", action="store_true",
-                    help="the one-shot model-decode driver (not ported "
-                         "yet)")
+                    help="run the prefill+decode model loop instead of "
+                         "the request-serving loop")
     ap.add_argument("--fault-spec", default=None,
                     help="inject device faults for the whole run, e.g. "
                          "'ber=0.01,banks=4,dead_banks=1:2,seed=0' "
@@ -87,8 +232,9 @@ def main(argv=None):
     ap.add_argument("--list-engines", action="store_true",
                     help="print the sort-engine registry and exit")
     ap.add_argument("--device", default=None,
-                    help="torch device the engines run on (default: the "
-                         "CUDA device; 'cpu' runs the plain versions)")
+                    help="torch device the engines and the model run on "
+                         "(default: the CUDA device; 'cpu' runs the plain "
+                         "versions)")
     grp = ap.add_argument_group("serving loop")
     grp.add_argument("--requests", type=int, default=40)
     grp.add_argument("--n", type=int, default=48,
@@ -104,6 +250,26 @@ def main(argv=None):
                           "(defaults to 0.99 under --fault-spec)")
     grp.add_argument("--out", default=None,
                      help="write the summary JSON here")
+    grp = ap.add_argument_group("one-shot model decode")
+    grp.add_argument("--arch", default=None)
+    grp.add_argument("--batch", type=int, default=4)
+    grp.add_argument("--prompt-len", type=int, default=16)
+    grp.add_argument("--max-new", type=int, default=32)
+    grp.add_argument("--top-k", type=int, default=0)
+    grp.add_argument("--prune", type=float, default=0.0)
+    grp.add_argument("--layers", type=int, default=4)
+    grp.add_argument("--d-model", type=int, default=256)
+    grp.add_argument("--vocab", type=int, default=1024)
+    grp.add_argument("--full-size", action="store_true")
+    grp.add_argument("--router-impl", default=None,
+                     choices=sorted(ROUTER_ENGINES),
+                     help="MoE routing top-k engine, by the reference's "
+                          "name (radix | pallas | lax) or the port's "
+                          "(radix | fused-topk | torch); default: the arch "
+                          "config's choice")
+    grp.add_argument("--serve-retries", type=int, default=2,
+                     help="full-run retries when the fault pre-flight "
+                          "degrades (with --fault-spec)")
     args = ap.parse_args(argv)
 
     if args.list_engines:
@@ -111,9 +277,7 @@ def main(argv=None):
             print(f"{name:12s} [{spec.mode:10s}] {spec.description}")
         return
     if args.oneshot:
-        raise SystemExit(
-            "--oneshot (the model-decode driver) is not ported yet: it "
-            "needs the model zoo and launch layer, item A12 of ROADMAP.md")
+        return _oneshot_main(args)
 
     fault_spec = faults.parse_spec(args.fault_spec) if args.fault_spec \
         else None

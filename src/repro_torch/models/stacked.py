@@ -1,0 +1,266 @@
+"""Stacked-layer forward — the production serving path: the port of
+``repro.models.stacked``.
+
+Identical consecutive layers hold their parameters STACKED along a
+leading axis (the reference's layout, leaf for leaf, so its weights carry
+across with ``tree.params_from_numpy``).  Where the reference scans a run
+under ``lax.scan``, the port loops over the leading axis in Python on
+views ``leaf[i]``: nothing is copied, and a KV cache written through a
+view lands in the stacked cache.
+
+Layer grouping:
+
+  qwen3 &c.   : [attn x N]                              -> one run
+  deepseek-v2 : [mla+dense x1] + [mla+moe x59]          -> run + run
+  llama-vision: 10 x ([attn x9] + [attn+xattn x1])      -> periodic
+  zamba2      : 9 x ([ssm x5] + [shared-attn x1])       -> periodic
+  musicgen    : 4 x ([attn x11] + [attn+xattn x1])      -> periodic
+
+The SSM, MLA, cross-attention and shared-attention blocks, and with them
+the periodic patterns, are not ported yet (ROADMAP.md item A12b) and
+raise ``NotImplementedError``; the layer grouping (``segments``) and
+``from_layerwise`` cover all ten archs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ATTN, ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Sig:
+    kind: str
+    moe: bool = False
+    xattn: bool = False
+    shared: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    sig: Sig
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Periodic:
+    reps: int
+    inner: Tuple[Run, ...]
+
+
+def layer_sig(cfg: ArchConfig, i: int) -> Sig:
+    kinds = T._layer_kinds(cfg)
+    kind = kinds[i]
+    shared = bool(cfg.hybrid_every) and kind == ATTN
+    return Sig(kind=kind,
+               moe=T._is_moe_layer(cfg, i, kind),
+               xattn=T._has_xattn(cfg, i),
+               shared=shared)
+
+
+def _rle(sigs: Sequence[Sig]) -> List[Run]:
+    runs: List[Run] = []
+    for s in sigs:
+        if runs and runs[-1].sig == s:
+            runs[-1] = Run(s, runs[-1].count + 1)
+        else:
+            runs.append(Run(s, 1))
+    return runs
+
+
+def segments(cfg: ArchConfig) -> List:
+    sigs = [layer_sig(cfg, i) for i in range(cfg.n_layers)]
+    p = cfg.xattn_every or cfg.hybrid_every
+    if p and cfg.n_layers % p == 0 and cfg.n_layers // p > 1:
+        period = sigs[:p]
+        if all(sigs[i] == period[i % p] for i in range(cfg.n_layers)):
+            return [Periodic(cfg.n_layers // p, tuple(_rle(period)))]
+    return list(_rle(sigs))
+
+
+def _runs(cfg: ArchConfig) -> List[Run]:
+    """The config's segments, all runs: a periodic pattern (a fusion layer
+    or zamba2's shared block every few layers) is not ported yet."""
+    segs = segments(cfg)
+    if any(isinstance(seg, Periodic) for seg in segs):
+        raise T.unported("a periodic layer pattern (cross-attention or the "
+                         "hybrid shared block)")
+    return segs
+
+
+def _lead(run: Run) -> Tuple[int, ...]:
+    """The stacked leading dims of a run's leaves: (count,) for a run of
+    more than one layer."""
+    return (run.count,) if run.count > 1 else ()
+
+
+def _index(t, i):
+    """The i-th slice of every leaf of a stacked tree: views, no copies."""
+    return tree.map_with_path(lambda _, leaf: leaf[i], t)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ArchConfig, sig: Sig, gen, device) -> Dict:
+    if sig.kind != ATTN:
+        raise T.unported(f"a block of kind {sig.kind!r}")
+    if sig.shared:
+        raise T.unported("the hybrid shared attention block")
+    if sig.xattn:
+        raise T.unported("the cross-attention layer")
+    return T.init_block(cfg, sig.moe, gen, device)
+
+
+def _stacked(lead: Tuple[int, ...], make: Callable[[], Dict]) -> Dict:
+    """A block tree stacked over ``lead``, filled one layer at a time into
+    leaves allocated once (never a whole stacked leaf drawn at once)."""
+    if not lead:
+        return make()
+    n = 1
+    for s in lead:
+        n *= s
+    first = make()
+    out = tree.map_with_path(
+        lambda _, t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
+                                 device=t.device), first)
+    flat = tree.map_with_path(
+        lambda _, t: t.reshape((n,) + t.shape[len(lead):]), out)
+    for i in range(n):
+        blk = first if i == 0 else make()
+        src = dict(tree.flatten_with_path(blk))
+        for path, dst in tree.flatten_with_path(flat):
+            dst[i].copy_(src[path])
+        del blk
+    return out
+
+
+def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
+                device) -> Dict:
+    """Random params in the stacked layout, drawn from ``gen`` (a generator
+    on ``device``; None on the meta device)."""
+    if cfg.hybrid_every:
+        raise T.unported("the hybrid shared attention block")
+    device = torch.device(device)
+    runs = _runs(cfg)
+    params: Dict = {"embed": L.init_embed(cfg, gen, device),
+                    "final_norm": L.init_norm(cfg, gen, device)}
+    params["segments"] = [
+        _stacked(_lead(run),
+                 lambda s=run.sig: _init_block(cfg, s, gen, device))
+        for run in runs]
+    return params
+
+
+def from_layerwise(cfg: ArchConfig, lw: Dict) -> Dict:
+    """Convert ``transformer.init_params`` layout to the stacked layout
+    (stacked leaves are new tensors)."""
+    segs = segments(cfg)
+    blocks = lw["blocks"]
+    out = {"embed": lw["embed"], "final_norm": lw["final_norm"]}
+    if "shared_attn" in lw:
+        out["shared_attn"] = lw["shared_attn"]
+
+    def stack(blks):
+        leaves = [dict(tree.flatten_with_path(b)) for b in blks]
+        return tree.map_with_path(
+            lambda path, _: torch.stack([lv[path] for lv in leaves]), blks[0])
+
+    idx = 0
+    seg_params = []
+    for seg in segs:
+        if isinstance(seg, Run):
+            blks = blocks[idx: idx + seg.count]
+            idx += seg.count
+            seg_params.append(blks[0] if seg.count == 1 else stack(blks))
+        else:
+            p = sum(r.count for r in seg.inner)
+            inner_lists: List[List] = [[] for _ in seg.inner]
+            for rep in range(seg.reps):
+                o = idx + rep * p
+                for j, run in enumerate(seg.inner):
+                    blks = blocks[o: o + run.count]
+                    o += run.count
+                    inner_lists[j].append(
+                        blks[0] if run.count == 1 else stack(blks))
+            idx += seg.reps * p
+            seg_params.append(
+                {"inner": [stack(lst) for lst in inner_lists]})
+    out["segments"] = seg_params
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _run(shared, run: Run, blk, cfg, x, aux, positions, frontend, cache):
+    """A run of layers, one at a time over the leading axis when stacked;
+    caches are written in place."""
+    if run.count == 1:
+        x, _, a = T.apply_block(shared, blk, run.sig.kind, cfg, x,
+                                positions, frontend, cache)
+        return x, aux + a
+    for i in range(run.count):
+        x, _, a = T.apply_block(shared, _index(blk, i), run.sig.kind, cfg, x,
+                                positions, frontend,
+                                None if cache is None else _index(cache, i))
+        aux = aux + a
+    return x, aux
+
+
+def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[List] = None):
+    """tokens: (B, T) int.  Returns (logits (B,T,V) float32, caches, aux);
+    given caches are written in place and returned."""
+    B, Tn = tokens.shape
+    if positions is None:
+        positions = torch.arange(Tn, dtype=torch.int32,
+                                 device=tokens.device).expand(B, Tn)
+    x = L.embed_tokens(params["embed"], tokens)
+    shared = params.get("shared_attn")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, (run, sp) in enumerate(zip(_runs(cfg), params["segments"])):
+        x, aux = _run(shared, run, sp, cfg, x, aux, positions, frontend,
+                      caches[si] if caches is not None else None)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.lm_logits(params["embed"], x), caches, aux
+
+
+# ---------------------------------------------------------------------------
+# Serving (stacked caches)
+# ---------------------------------------------------------------------------
+
+
+def _cache_for_sig(cfg: ArchConfig, sig: Sig, batch: int, max_len: int,
+                   device, lead: Tuple[int, ...] = ()) -> Dict:
+    if sig.kind != ATTN:
+        raise T.unported(f"the cache of a block of kind {sig.kind!r}")
+    return L.init_attn_cache(cfg, batch, max_len, device, lead)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> List:
+    return [_cache_for_sig(cfg, run.sig, batch, max_len, device, _lead(run))
+            for run in _runs(cfg)]
+
+
+def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
+                pos: torch.Tensor, caches: List,
+                frontend: Optional[torch.Tensor] = None):
+    """One serving step: token (B,1) at positions pos (B,).  Returns
+    (logits (B,1,V), caches)."""
+    positions = pos[:, None].to(torch.int32)
+    logits, caches, _ = forward(params, cfg, token, frontend=frontend,
+                                positions=positions, caches=caches)
+    return logits, caches

@@ -17,37 +17,40 @@ import torch
 Path = Tuple[Any, ...]
 
 
+def _collect(node, path: Path, out: List[Tuple[Path, Any]]) -> None:
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _collect(node[key], path + (key,), out)
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            _collect(child, path + (i,), out)
+    else:
+        out.append((path, node))
+
+
 def flatten_with_path(tree) -> List[Tuple[Path, Any]]:
     """(path, leaf) for every leaf of ``tree``; anything that is not a
-    dict, list or tuple is a leaf."""
+    dict, list or tuple is a leaf.  (A module-level walk: a nested one that
+    closed over the list would form a reference cycle, and the leaves
+    would live on until the cycle collector ran.)"""
     out: List[Tuple[Path, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (key,))
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(child, path + (i,))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _collect(tree, (), out)
     return out
 
 
 def map_with_path(fn: Callable[[Path, Any], Any], tree):
     """A tree of the same structure with every leaf replaced by
     ``fn(path, leaf)``."""
-    def walk(node, path):
-        if isinstance(node, dict):
-            return {key: walk(node[key], path + (key,)) for key in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(child, path + (i,))
-                              for i, child in enumerate(node))
-        return fn(path, node)
+    return _map(fn, tree, ())
 
-    return walk(tree, ())
+
+def _map(fn, node, path: Path):
+    if isinstance(node, dict):
+        return {key: _map(fn, node[key], path + (key,)) for key in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(fn, child, path + (i,))
+                          for i, child in enumerate(node))
+    return fn(path, node)
 
 
 def keystr(path: Path) -> str:
