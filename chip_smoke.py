@@ -117,6 +117,25 @@ order; any failure raises and exits non-zero:
       size through the CLI with ``--prune 0.3 --top-k 50``, its prune
       masks equal to the host's on a copy of the same weights, and its
       float32 decode against forward at 4 layers;
+   r. the other five archs: ``launch.serve.serve()`` (the function behind
+      the CLI, which has no depth-only cut) at deepseek-v2's published
+      widths, 6 of its 60 layers (1 dense + 5 MoE, 39.58 GiB), batch 4,
+      prompt 16, 32 new tokens, top-32 sampling, 30 % in-situ pruning,
+      router ``pallas`` (fused-topk): the key-pack and top-k kernels
+      launched 5 times a forward; router parity bit for bit as in q; the
+      decode step's times as in q; float32 decode against forward at 2
+      layers (the absorbed MLA decode against the naive prefill);
+      mamba2-1.3b, zamba2-2.7b and musicgen-medium at full size through
+      the ``--oneshot --full-size`` CLI, each with a float32
+      decode-against-forward check at 4, 12 and 24 layers (zamba2's and
+      musicgen's periodic layout kept), the fusion layers' gates at 0.5
+      with the frontend stub; mamba2's prefill through the cache on the
+      card == the host's at 2 layers in float32 (the reference's one-token
+      cached branch, reproduced); llama-3.2-vision-90b at width and 20
+      layers (two periods, 36.35 GiB) through ``serve()`` with the 1601 x
+      8192 frontend stub and the gates at 0 as initialised, then its
+      float32 check at 10 layers with the gates at 0.5; each model freed
+      before the next, the peak device memory of each step printed;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -294,116 +313,122 @@ def topk_edge_rows(rng, n: int, k: int):
     return a
 
 
-# phase 4q: qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2_7b.py) served at
-# its published widths and full depth, and olmo-1b at full size
-QWEN_ARCH, QWEN_LAYERS = "qwen2_moe_a2_7b", 24
+# phases 4q and 4r: the model zoo's serving path.  The one-shot loop's
+# shape (tests of the reference's serve CLI: batch 4, prompt 16, 32 new)
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "16", "--max-new", "32"]
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 32
 PARITY_DECODE_STEPS = 8
 # the float32 decode-against-forward check: a cut depth, 12 positions, the
 # reference's tolerance (tests/test_models.py)
-F32_LAYERS, F32_POSITIONS, F32_TOL = 4, 12, 3e-3
+F32_POSITIONS, F32_TOL = 12, 3e-3
 TIMED_DECODE_STEPS = 16
+# phase 4q: qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2_7b.py) served at
+# its published widths and full depth, and olmo-1b at full size
+QWEN_ARCH, QWEN_LAYERS, F32_LAYERS = "qwen2_moe_a2_7b", 24, 4
+# phase 4r: deepseek-v2 (src/repro/configs/deepseek_v2_236b.py) at its
+# published widths, depth cut from 60 to 6 (1 dense + 5 MoE layers; the
+# whole model is about 440 GiB); its float32 check at 2 layers
+DSV2_ARCH, DSV2_LAYERS, DSV2_F32_LAYERS = "deepseek_v2_236b", 6, 2
+# llama-3.2-vision-90b at depth 20 (two periods of 9 + a fusion layer);
+# its float32 check at 10 (one run of 9 and the fusion layer)
+LLAMA_ARCH, LLAMA_LAYERS, LLAMA_F32_LAYERS = "llama_3_2_vision_90b", 20, 10
+# served at full width and depth through the CLI; the depth of each one's
+# float32 check keeps zamba2's and musicgen's periodic layout (2 reps)
+CLI_ARCHS = (("mamba2_1_3b", 4), ("zamba2_2_7b", 12), ("musicgen_medium", 24))
+# mamba2's prefill through the cache, card against host: float32, 2 layers
+SSM_PREFILL_LAYERS, SSM_PREFILL_TOL = 2, 1e-3
+GATE = 0.5          # the cross-attention gates' value in the float32 checks
+GIB = 2 ** 30
 
 
-def phase_4q(card: str, zero_counts, counts) -> dict:
-    """The model zoo's serving path on the card: the ``--oneshot`` CLI at
-    qwen2-moe-a2.7b's full widths and depth through the fused top-k router,
-    router parity across the three engines, float32 decode against forward
-    at a cut depth, olmo-1b at full size with its prune masks held to the
-    host's.  Returns the kernel launches of the runs that count (the CLI
-    and the fused-topk runs) and the times."""
+def cut(cfg, n_layers: int):
+    """``cfg`` at ``n_layers``, its layer pattern cut alike; every width
+    as published."""
+    pat = cfg.layer_pattern[:n_layers] if cfg.layer_pattern else None
+    return dataclasses.replace(cfg, n_layers=n_layers, layer_pattern=pat)
+
+
+def open_gates(params, value: float):
+    """``params`` with every cross-attention gate set to ``value`` (at init
+    the gates are 0 and the fusion layers add nothing)."""
+    import torch
+    from repro_torch import tree
+    return tree.map_with_path(
+        lambda path, t: torch.full_like(t, value) if path[-1] == "gate"
+        else t, params)
+
+
+def checked_run(tag: str, top_k: int, run, zero_counts, counts):
+    """One serving run (``run()`` returns the one-shot result) with every
+    sampled token checked to lie in its step's top-k and every logit to be
+    finite.  Returns (result, launches, seconds)."""
+    import torch
+    from repro_torch.models import sampling
+    steps_seen = []
+    real = sampling.sample_logits
+
+    def record(logits, gen, k=0, temperature=1.0):
+        tok = real(logits, gen, k, temperature)
+        expect(bool(torch.isfinite(logits).all()),
+               f"{tag}: a logit is not finite")
+        kth = torch.topk(logits.float(), top_k, dim=-1).values[:, -1]
+        picked = logits.float().gather(1, tok.long()[:, None])[:, 0]
+        expect(bool((picked >= kth).all()), f"{tag}: a sampled token lies "
+               f"outside its step's top-{top_k}")
+        steps_seen.append(tok)
+        return tok
+
+    sampling.sample_logits = record
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        res = run()
+    finally:
+        sampling.sample_logits = real
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    shape = (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+    expect(len(steps_seen) == SERVE_NEW and res["tokens"].shape == shape,
+           f"{tag}: {len(steps_seen)} sampling steps, tokens "
+           f"{res['tokens'].shape}")
+    return res, got, secs
+
+
+def cli(tag: str, arch: str, top_k: int, zero_counts, counts, *extra):
+    """One in-process run of the serving CLI at the arch's full size."""
+    from repro_torch.launch import serve
+    return checked_run(
+        f"{tag} {arch}", top_k,
+        lambda: serve.main(["--oneshot", "--arch", arch, "--full-size",
+                            *SERVE_ARGS, "--top-k", str(top_k), *extra]),
+        zero_counts, counts)
+
+
+def router_parity(tag: str, cfg, params, moe_layers: int, zero_counts,
+                  counts) -> dict:
+    """A prefill and 8 teacher-forced decode steps under each router
+    engine on one set of weights: expert indices and logits of ``radix``
+    and ``lax`` (torch) equal ``pallas`` (fused-topk) bit for bit.
+    Returns fused-topk's kernel launches."""
     import numpy as np
     import torch
-    from repro_torch import configs, tree
-    from repro_torch.launch import serve, steps
-    from repro_torch.models import accounting, moe, sampling, stacked
-    from repro_torch.models.layers import matmul_f32
-    from repro_torch.pruning import insitu
-
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, stacked
     dev = torch.device("cuda")
-    torch.cuda.reset_peak_memory_stats()
-    qcfg = configs.get_config(QWEN_ARCH)
-    expect(qcfg.n_layers == QWEN_LAYERS and qcfg.moe_capacity_factor == 1.25,
-           "4q: qwen2-moe config")
-    launched = {"radix_topk": 0, "bitplane_pack": 0}
-    out = {}
-
-    def add(got):
-        for name in launched:
-            launched[name] += got[name]
-
-    def cli(arch, top_k, *extra):
-        """One in-process run of the serving CLI; every sampled token is
-        checked to lie in its step's top-k and every logit to be finite.
-        Returns (result, launches, seconds)."""
-        steps_seen = []
-        real = sampling.sample_logits
-
-        def record(logits, gen, k=0, temperature=1.0):
-            tok = real(logits, gen, k, temperature)
-            expect(bool(torch.isfinite(logits).all()),
-                   f"4q {arch}: a logit is not finite")
-            kth = torch.topk(logits.float(), top_k, dim=-1).values[:, -1]
-            picked = logits.float().gather(1, tok.long()[:, None])[:, 0]
-            expect(bool((picked >= kth).all()), f"4q {arch}: a sampled "
-                   f"token lies outside its step's top-{top_k}")
-            steps_seen.append(tok)
-            return tok
-
-        sampling.sample_logits = record
-        zero_counts()
-        t0 = time.perf_counter()
-        try:
-            res = serve.main(["--oneshot", "--arch", arch, "--full-size",
-                              *SERVE_ARGS, "--top-k", str(top_k), *extra])
-        finally:
-            sampling.sample_logits = real
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = counts()
-        expect(len(steps_seen) == 32 and res["tokens"].shape == (4, 48),
-               f"4q {arch}: {len(steps_seen)} sampling steps, tokens "
-               f"{res['tokens'].shape}")
-        return res, got, secs
-
-    # ---- the CLI at qwen2-moe's full widths, the router on the kernels
-    print(f"4q {QWEN_ARCH}: {accounting.param_count(qcfg)} parameters, "
-          f"param_bytes {accounting.param_bytes(qcfg)} "
-          f"({accounting.param_bytes(qcfg) / 2**30:.2f} GiB) before "
-          "allocating", flush=True)
-    res, got, secs = cli(QWEN_ARCH, 32, "--router-impl", "pallas",
-                         "--prune", "0.3")
-    forwards = 32
-    for name in launched:
-        expect(got[name] == QWEN_LAYERS * forwards, f"4q CLI: {name} "
-               f"launched {got[name]} times, not {QWEN_LAYERS} x {forwards}")
-    add(got)
-    print(f"4q serve --oneshot {QWEN_ARCH} --full-size --router-impl pallas "
-          f"{' '.join(SERVE_ARGS)} --top-k 32 --prune 0.3: {secs:.1f} s in "
-          f"all (init, prune, prefill, 31 decode steps); launches {got} == "
-          f"{QWEN_LAYERS} x {forwards}; every logit finite, every sampled "
-          f"token inside its step's top-32; CLI's prefill "
-          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
-          f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
-    del res
-    torch.cuda.empty_cache()
-
-    # ---- router parity on one set of weights: prefill + 8 teacher-forced
-    # decode steps under each engine, bit for bit
     t0 = time.perf_counter()
-    params = stacked.init_params(
-        qcfg, torch.Generator(device=dev).manual_seed(1), dev)
     rng = np.random.default_rng(1)
-    batch, plen = 4, 16
-    prompt = torch.as_tensor(rng.integers(0, qcfg.vocab, (batch, plen)),
+    batch, plen = SERVE_BATCH, SERVE_PROMPT
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, plen)),
                              dtype=torch.int32, device=dev)
     forced = torch.as_tensor(
-        rng.integers(0, qcfg.vocab, (batch, PARITY_DECODE_STEPS)),
+        rng.integers(0, cfg.vocab, (batch, PARITY_DECODE_STEPS)),
         dtype=torch.int32, device=dev)
     real_route = moe.route_topk
-    runs = {}
+    n_fwd = 1 + PARITY_DECODE_STEPS
+    runs, launched = {}, {}
     for impl in ("pallas", "radix", "lax"):
-        cfg = dataclasses.replace(qcfg, router_impl=impl)
+        c = dataclasses.replace(cfg, router_impl=impl)
         picks = []
 
         def route(logits, k, name, picks=picks):
@@ -411,9 +436,9 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
             picks.append(idx)
             return gates, idx
 
-        prefill = steps.make_prefill_step(cfg)
-        decode = steps.make_decode_step(cfg)
-        caches = stacked.init_cache(cfg, batch, plen + PARITY_DECODE_STEPS,
+        prefill = steps.make_prefill_step(c)
+        decode = steps.make_decode_step(c)
+        caches = stacked.init_cache(c, batch, plen + PARITY_DECODE_STEPS,
                                     dev)
         moe.route_topk = route
         zero_counts()
@@ -429,38 +454,238 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
         torch.cuda.synchronize()
         got = counts()
         if impl == "pallas":
-            n_fwd = 1 + PARITY_DECODE_STEPS
-            for name in launched:
-                expect(got[name] == QWEN_LAYERS * n_fwd, f"4q parity: "
-                       f"{name} launched {got[name]}, not {QWEN_LAYERS} x "
+            for name in ("radix_topk", "bitplane_pack"):
+                expect(got[name] == moe_layers * n_fwd, f"{tag} parity: "
+                       f"{name} launched {got[name]}, not {moe_layers} x "
                        f"{n_fwd}")
-            add(got)
+            launched = got
         else:
-            expect(not any(got.values()), f"4q parity {impl}: launched "
+            expect(not any(got.values()), f"{tag} parity {impl}: launched "
                    f"kernels {got}")
-        expect(len(picks) == QWEN_LAYERS * (1 + PARITY_DECODE_STEPS),
-               f"4q parity {impl}: {len(picks)} router calls")
+        expect(len(picks) == moe_layers * n_fwd,
+               f"{tag} parity {impl}: {len(picks)} router calls")
         expect(all(bool(torch.isfinite(lg).all()) for lg in logits),
-               f"4q parity {impl}: a logit is not finite")
+               f"{tag} parity {impl}: a logit is not finite")
         runs[impl] = (logits, picks)
+        del caches
     base_logits, base_picks = runs["pallas"]
     for impl in ("radix", "lax"):
         lg, pk = runs[impl]
         expect(all(torch.equal(a, b) for a, b in zip(pk, base_picks)),
-               f"4q parity: {impl}'s expert indices != fused-topk's")
+               f"{tag} parity: {impl}'s expert indices != fused-topk's")
         expect(all(torch.equal(a, b) for a, b in zip(lg, base_logits)),
-               f"4q parity: {impl}'s logits != fused-topk's bit for bit")
-    print(f"4q router parity {QWEN_ARCH} (4, 16) prefill + "
+               f"{tag} parity: {impl}'s logits != fused-topk's bit for bit")
+    print(f"{tag} router parity {cfg.name} ({batch}, {plen}) prefill + "
           f"{PARITY_DECODE_STEPS} teacher-forced decode steps: expert "
           "indices and logits of radix and lax (torch) == pallas "
-          f"(fused-topk) bit for bit; fused-topk launched {QWEN_LAYERS} of "
+          f"(fused-topk) bit for bit; fused-topk launched {moe_layers} of "
           f"each kernel a forward; {time.perf_counter() - t0:.1f} s",
           flush=True)
-    del runs, base_logits, base_picks, lg, pk, logits
+    return {name: launched[name] for name in ("radix_topk", "bitplane_pack")}
+
+
+def decode_times(card: str, tag: str, cfg, params, counts,
+                 frontend=None) -> dict:
+    """Prefill and decode on the host clock (after warm-up runs), the
+    decode steps' stream time by CUDA events, and the device's busy time
+    from the profiler's kernel intervals, at batch 4 and prompt 16."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps
+    from repro_torch.models import stacked
+    dev = torch.device("cuda")
+    batch, plen = SERVE_BATCH, SERVE_PROMPT
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (batch, plen)), dtype=torch.int32, device=dev)
+    fe = () if frontend is None else (frontend,)
+    wf = frontend is not None
+    prefill = steps.make_prefill_step(cfg, with_frontend=wf)
+    decode = steps.make_decode_step(cfg, with_frontend=wf)
+    max_len = plen + 1 + 2 * TIMED_DECODE_STEPS
+    caches = stacked.init_cache(cfg, batch, max_len, dev)
+    prefill(params, prompt, caches, *fe)          # warm-up prefill
+    caches = stacked.init_cache(cfg, batch, max_len, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, prompt, caches, *fe)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    pos = torch.full((batch,), plen, dtype=torch.int32, device=dev)
+    decode(params, tok, pos, caches, *fe)         # warm-up step
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    before = counts()
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(TIMED_DECODE_STEPS):
+        logits, _ = decode(params, tok, pos + 1 + i, caches, *fe)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    stop.record()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    after = counts()
+    # a step makes thousands of launches: more than the stream's launch
+    # queue holds, so queueing the steps behind a sleep would not take the
+    # host out of the event times; the profiler's kernel intervals give the
+    # device's busy time instead
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(TIMED_DECODE_STEPS):
+            logits, _ = decode(params, tok,
+                               pos + 1 + TIMED_DECODE_STEPS + i, caches,
+                               *fe)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    expect(len(kernels) > 0, f"{tag}: the profiler saw no kernel")
+    busy_us, edge, by_name = 0.0, kernels[0][0], {}
+    for a, b, name in kernels:
+        busy_us += max(0.0, b - max(a, edge))
+        edge = max(edge, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    span_us = edge - kernels[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"prefill_ms": prefill_ms,
+           "decode_tok_per_s": batch * TIMED_DECODE_STEPS / decode_s,
+           "decode_step_host_ms": decode_s / TIMED_DECODE_STEPS * 1e3,
+           "decode_step_events_ms": (start.elapsed_time(stop)
+                                     / TIMED_DECODE_STEPS),
+           "decode_step_busy_ms": busy_us / 1e3 / TIMED_DECODE_STEPS,
+           "decode_idle_share": 1 - busy_us / span_us,
+           "kernels_per_step": len(kernels) // TIMED_DECODE_STEPS,
+           "router_launches_per_step": {
+               name: (after[name] - before[name]) / TIMED_DECODE_STEPS
+               for name in ("radix_topk", "bitplane_pack")}}
+    print(f"[{card}] {tag} {cfg.name} bf16, {cfg.n_layers} layers, batch "
+          f"{batch}, router {cfg.router_impl}: prefill ({plen} tokens a row) "
+          f"{prefill_ms:.2f} ms host clock; decode "
+          f"{out['decode_tok_per_s']:.1f} tok/s host clock "
+          f"({out['decode_step_host_ms']:.2f} ms a step over "
+          f"{TIMED_DECODE_STEPS} steps after one warm-up); a decode step's "
+          f"stream time by CUDA events {out['decode_step_events_ms']:.2f} ms "
+          f"(host-paced), device busy {out['decode_step_busy_ms']:.2f} ms "
+          f"(profiler: {out['kernels_per_step']} kernels a step, idle share "
+          f"{out['decode_idle_share']:.3f}); router kernel launches a step "
+          f"{out['router_launches_per_step']}", flush=True)
+    print(f"[{card}] {tag} decode step, kernel time a step by name: "
+          + "; ".join(f"{name[:60]} {us / 1e3 / TIMED_DECODE_STEPS:.3f} ms"
+                      for name, us in top), flush=True)
+    return out
+
+
+def f32_decode_vs_forward(tag: str, arch: str, layers: int, zero_counts,
+                          counts, router=None, gate=None) -> dict:
+    """Float32 at the arch's full width and ``layers`` deep: token-by-token
+    decode through the caches from position 0 reproduces the forward
+    within rtol = atol = 3e-3 over 12 positions (no capacity drops; the
+    frontend stub given to every step, the gates set to ``gate``).
+    Returns the kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import accounting, stacked
+    dev = torch.device("cuda")
+    base = configs.get_config(arch)
+    cfg = dataclasses.replace(
+        cut(base, layers), param_dtype="float32", compute_dtype="float32",
+        moe_capacity_factor=None, router_impl=router or base.router_impl)
+    p = stacked.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    if gate is not None:
+        p = open_gates(p, gate)
+    fe = pipeline.frontend_stub(cfg, 2, dev)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, F32_POSITIONS)), device=dev)
+    zero_counts()
+    full, _, _ = stacked.forward(p, cfg, toks, frontend=fe)
+    caches = stacked.init_cache(cfg, 2, F32_POSITIONS + 4, dev)
+    outs = []
+    for t in range(F32_POSITIONS):
+        lg, caches = stacked.decode_step(
+            p, cfg, toks[:, t:t + 1],
+            torch.full((2,), t, dtype=torch.int32, device=dev), caches,
+            frontend=fe)
+        outs.append(lg)
+    torch.cuda.synchronize()
+    got = counts()
+    dec = torch.cat(outs, dim=1)
+    diff = (dec - full).abs()
+    over = (diff - (F32_TOL + F32_TOL * full.abs())).max().item()
+    expect(bool(torch.isfinite(full).all()) and over <= 0, f"{tag} "
+           f"{arch} float32 decode vs forward: exceeds rtol = atol = "
+           f"{F32_TOL} by {over}")
+    layout = " ".join(type(s).__name__ for s in stacked.segments(cfg))
+    extra = "" if gate is None else f", gates {gate}, frontend stub"
+    print(f"{tag} {arch} float32 at full width, {layers} layers ({layout}"
+          f"{extra}; param_bytes {accounting.param_bytes(cfg)}), 2 x "
+          f"{F32_POSITIONS} positions: token-by-token decode == forward "
+          f"within rtol = atol = {F32_TOL} (max |diff| "
+          f"{diff.max().item():.3e}); launches {got}", flush=True)
+    del p, caches
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_4q(card: str, zero_counts, counts) -> dict:
+    """The model zoo's serving path on the card: the ``--oneshot`` CLI at
+    qwen2-moe-a2.7b's full widths and depth through the fused top-k router,
+    router parity across the three engines, float32 decode against forward
+    at a cut depth, olmo-1b at full size with its prune masks held to the
+    host's.  Returns the kernel launches of the runs that count (the CLI
+    and the fused-topk runs) and the times."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import accounting, stacked
+    from repro_torch.models.layers import matmul_f32
+    from repro_torch.pruning import insitu
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    qcfg = configs.get_config(QWEN_ARCH)
+    expect(qcfg.n_layers == QWEN_LAYERS and qcfg.moe_capacity_factor == 1.25,
+           "4q: qwen2-moe config")
+    launched = {"radix_topk": 0, "bitplane_pack": 0}
+
+    def add(got):
+        for name in launched:
+            launched[name] += got[name]
+
+    # ---- the CLI at qwen2-moe's full widths, the router on the kernels
+    print(f"4q {QWEN_ARCH}: {accounting.param_count(qcfg)} parameters, "
+          f"param_bytes {accounting.param_bytes(qcfg)} "
+          f"({accounting.param_bytes(qcfg) / GIB:.2f} GiB) before "
+          "allocating", flush=True)
+    res, got, secs = cli("4q", QWEN_ARCH, 32, zero_counts, counts,
+                         "--router-impl", "pallas", "--prune", "0.3")
+    forwards = SERVE_NEW
+    for name in launched:
+        expect(got[name] == QWEN_LAYERS * forwards, f"4q CLI: {name} "
+               f"launched {got[name]} times, not {QWEN_LAYERS} x {forwards}")
+    add(got)
+    print(f"4q serve --oneshot {QWEN_ARCH} --full-size --router-impl pallas "
+          f"{' '.join(SERVE_ARGS)} --top-k 32 --prune 0.3: {secs:.1f} s in "
+          f"all (init, prune, prefill, 31 decode steps); launches {got} == "
+          f"{QWEN_LAYERS} x {forwards}; every logit finite, every sampled "
+          f"token inside its step's top-32; CLI's prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- router parity on one set of weights, then the head's product
+    # and the times on the same weights
+    params = stacked.init_params(
+        qcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    add(router_parity("4q", qcfg, params, QWEN_LAYERS, zero_counts, counts))
 
     # float32 logits from bfloat16 operands: the head through cuBLAS's
     # float32-output product, against the widened product
-    x = torch.randn(batch, 1, qcfg.d_model, generator=torch.Generator(
+    x = torch.randn(SERVE_BATCH, 1, qcfg.d_model, generator=torch.Generator(
         device=dev).manual_seed(2), device=dev).to(torch.bfloat16)
     head = params["embed"]["head"]
     f32 = matmul_f32(x, head)
@@ -475,119 +700,19 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
           f"- widened product| {d_wide:.3e}; a bf16 product rounded "
           f"{d_round:.3e}", flush=True)
 
-    # ---- times: prefill and decode on the host clock after the warm-up
-    # runs above; the decode steps' stream time by CUDA events, and the
-    # device's busy time from the profiler's kernel intervals
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cfg = dataclasses.replace(qcfg, router_impl="pallas")
-    prefill = steps.make_prefill_step(cfg)
-    decode = steps.make_decode_step(cfg)
-    max_len = plen + 1 + 2 * TIMED_DECODE_STEPS
-    caches = stacked.init_cache(cfg, batch, max_len, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, _ = prefill(params, prompt, caches)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    tok = logits[:, -1:].argmax(-1).to(torch.int32)
-    pos = torch.full((batch,), plen, dtype=torch.int32, device=dev)
-    decode(params, tok, pos, caches)              # warm-up step
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for i in range(TIMED_DECODE_STEPS):
-        logits, _ = decode(params, tok, pos + 1 + i, caches)
-        tok = logits[:, -1:].argmax(-1).to(torch.int32)
-    stop.record()
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    # a step issues ~3500 launches: more than the stream's launch queue
-    # holds, so queueing the steps behind a sleep would not take the host
-    # out of the event times; the profiler's kernel intervals give the
-    # device's busy time instead
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(TIMED_DECODE_STEPS):
-            logits, _ = decode(params, tok,
-                               pos + 1 + TIMED_DECODE_STEPS + i, caches)
-        torch.cuda.synchronize()
-    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
-                     for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
-    expect(len(kernels) > 0, "4q: the profiler saw no kernel")
-    busy_us, edge, by_name = 0.0, kernels[0][0], {}
-    for a, b, name in kernels:
-        busy_us += max(0.0, b - max(a, edge))
-        edge = max(edge, b)
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-    span_us = edge - kernels[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out["prefill_ms"] = prefill_ms
-    out["decode_tok_per_s"] = batch * TIMED_DECODE_STEPS / decode_s
-    out["decode_step_host_ms"] = decode_s / TIMED_DECODE_STEPS * 1e3
-    out["decode_step_events_ms"] = (start.elapsed_time(stop)
-                                    / TIMED_DECODE_STEPS)
-    out["decode_step_busy_ms"] = busy_us / 1e3 / TIMED_DECODE_STEPS
-    out["decode_idle_share"] = 1 - busy_us / span_us
-    print(f"[{card}] 4q {QWEN_ARCH} full size bf16, batch 4, fused-topk "
-          f"router: prefill (16 tokens a row) {prefill_ms:.2f} ms host clock; "
-          f"decode {out['decode_tok_per_s']:.1f} tok/s host clock "
-          f"({out['decode_step_host_ms']:.2f} ms a step over "
-          f"{TIMED_DECODE_STEPS} steps after one warm-up); a decode step's "
-          f"stream time by CUDA events {out['decode_step_events_ms']:.2f} ms "
-          f"(host-paced), device busy {out['decode_step_busy_ms']:.2f} ms "
-          f"(profiler: {len(kernels) // TIMED_DECODE_STEPS} kernels a step, "
-          f"idle share {out['decode_idle_share']:.3f})", flush=True)
-    print(f"[{card}] 4q decode step, kernel time a step by name: " + "; ".join(
-        f"{name[:60]} {us / 1e3 / TIMED_DECODE_STEPS:.3f} ms"
-        for name, us in top), flush=True)
-    del params, caches, logits
+    out = decode_times(card, "4q", dataclasses.replace(
+        qcfg, router_impl="pallas"), params, counts)
+    del params
     torch.cuda.empty_cache()
 
     # ---- float32 decode against forward at full width, cut depth
-    def decode_vs_forward(arch, router=None):
-        cfg = dataclasses.replace(
-            configs.get_config(arch), n_layers=F32_LAYERS,
-            param_dtype="float32", compute_dtype="float32",
-            moe_capacity_factor=None,
-            router_impl=router or configs.get_config(arch).router_impl)
-        p = stacked.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(3), dev)
-        toks = torch.as_tensor(np.random.default_rng(3).integers(
-            0, cfg.vocab, (2, F32_POSITIONS)), device=dev)
-        zero_counts()
-        full, _, _ = stacked.forward(p, cfg, toks)
-        caches = stacked.init_cache(cfg, 2, F32_POSITIONS + 4, dev)
-        outs = []
-        for t in range(F32_POSITIONS):
-            lg, caches = stacked.decode_step(
-                p, cfg, toks[:, t:t + 1],
-                torch.full((2,), t, dtype=torch.int32, device=dev), caches)
-            outs.append(lg)
-        torch.cuda.synchronize()
-        got = counts()
-        dec = torch.cat(outs, dim=1)
-        diff = (dec - full).abs()
-        over = (diff - (F32_TOL + F32_TOL * full.abs())).max().item()
-        expect(bool(torch.isfinite(full).all()) and over <= 0, f"4q "
-               f"{arch} float32 decode vs forward: exceeds rtol = atol = "
-               f"{F32_TOL} by {over}")
-        print(f"4q {arch} float32 at full width, {F32_LAYERS} layers "
-              f"(param_bytes {accounting.param_bytes(cfg)}), 2 x "
-              f"{F32_POSITIONS} positions: token-by-token decode == forward "
-              f"within rtol = atol = {F32_TOL} (max |diff| "
-              f"{diff.max().item():.3e}); launches {got}", flush=True)
-        return got
-
-    got = decode_vs_forward(QWEN_ARCH, "pallas")
+    got = f32_decode_vs_forward("4q", QWEN_ARCH, F32_LAYERS, zero_counts,
+                                counts, router="pallas")
     n_fwd = 1 + F32_POSITIONS
     for name in launched:
         expect(got[name] == F32_LAYERS * n_fwd, f"4q float32: {name} "
                f"launched {got[name]}, not {F32_LAYERS} x {n_fwd}")
     add(got)
-    torch.cuda.empty_cache()
 
     # ---- olmo-1b at full size: the non-parametric norm and the pruned
     # dense MLP; the masks made on the card == the host's on a copy
@@ -610,7 +735,8 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
 
     insitu.prune_params = prune_and_check
     try:
-        res, got, secs = cli("olmo_1b", 50, "--prune", "0.3")
+        res, got, secs = cli("4q", "olmo_1b", 50, zero_counts, counts,
+                             "--prune", "0.3")
     finally:
         insitu.prune_params = real_prune
     expect(not any(got.values()), f"4q olmo-1b: launched kernels {got}")
@@ -623,10 +749,211 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
           f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
     del res
     torch.cuda.empty_cache()
-    decode_vs_forward("olmo_1b")
+    f32_decode_vs_forward("4q", "olmo_1b", F32_LAYERS, zero_counts, counts)
     print(f"[{card}] 4q peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB", flush=True)
     out["launches"] = launched
+    return out
+
+
+def phase_4r(card: str, zero_counts, counts) -> dict:
+    """The other five archs on the card.  deepseek-v2 at its published
+    widths (6 layers) through ``serve.serve()`` with the fused top-k
+    router: every sampled token inside its top-32, router parity bit for
+    bit, times, float32 decode against forward at 2 layers; mamba2,
+    zamba2 and musicgen at full size through the ``--oneshot`` CLI, each
+    with a float32 decode-against-forward check at a cut depth, and
+    mamba2's prefill through the cache on the card against the host's;
+    llama-3.2-vision at width and 20 layers with the 1601 x 8192 frontend
+    stub, gates at 0 as initialised, and its float32 check at 10 layers
+    with the gates at 0.5.  Returns the router kernels' launches of the
+    counted runs, the times and the peaks."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.launch import serve
+    from repro_torch.models import accounting, stacked
+
+    dev = torch.device("cuda")
+    launched = {"radix_topk": 0, "bitplane_pack": 0}
+    peaks = {}
+
+    def add(got):
+        for name in launched:
+            launched[name] += got[name]
+
+    def peak(what):
+        """The device's peak since the last call, printed and kept."""
+        torch.cuda.synchronize()
+        gib = torch.cuda.max_memory_allocated() / GIB
+        peaks[what] = gib
+        print(f"[{card}] 4r {what}: peak device memory {gib:.2f} GiB",
+              flush=True)
+        expect(gib < 80, f"4r {what}: peak {gib:.2f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def sized(cfg):
+        return (f"{accounting.param_count(cfg)} parameters, param_bytes "
+                f"{accounting.param_bytes(cfg)} "
+                f"({accounting.param_bytes(cfg) / GIB:.2f} GiB)")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- deepseek-v2 at its published widths, 6 layers, fused router
+    full = configs.get_config(DSV2_ARCH)
+    cfg = dataclasses.replace(cut(full, DSV2_LAYERS), router_impl="pallas")
+    expect((cfg.d_model, cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank,
+            cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
+            cfg.n_routed_experts, cfg.d_ff_expert, cfg.n_shared_experts,
+            cfg.moe_top_k, cfg.vocab, cfg.moe_capacity_factor)
+           == (5120, 128, 1536, 512, 128, 64, 128, 160, 1536, 2, 6, 102400,
+               1.25), "4r: deepseek-v2 widths")
+    moe_layers = DSV2_LAYERS - cfg.moe_layer_start
+    segs = stacked.segments(cfg)
+    print(f"4r {DSV2_ARCH} at {DSV2_LAYERS} of {full.n_layers} layers "
+          f"({segs}): {sized(cfg)} before allocating; the whole model "
+          f"{accounting.param_bytes(full) / GIB:.2f} GiB", flush=True)
+    res, got, secs = checked_run(
+        f"4r {DSV2_ARCH}", 32,
+        lambda: serve.serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                            top_k=32, prune_rate=0.3),
+        zero_counts, counts)
+    for name in launched:
+        expect(got[name] == moe_layers * SERVE_NEW, f"4r serve: {name} "
+               f"launched {got[name]} times, not {moe_layers} x {SERVE_NEW}")
+    add(got)
+    print(f"4r serve.serve({DSV2_ARCH} at {DSV2_LAYERS} layers, batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_NEW} new, top-k 32, "
+          f"prune 0.3, router pallas): {secs:.1f} s in all (init, prune, "
+          f"prefill, {SERVE_NEW - 1} decode steps); launches {got} == "
+          f"{moe_layers} x {SERVE_NEW}; every logit finite, every sampled "
+          f"token inside its step's top-32; prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
+    del res
+    peak(f"{DSV2_ARCH} serve (init, prune, serve)")
+
+    params = stacked.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    add(router_parity("4r", cfg, params, moe_layers, zero_counts, counts))
+    out = {"deepseek_v2": decode_times(card, "4r", cfg, params, counts)}
+    del params
+    peak(f"{DSV2_ARCH} parity and times")
+    got = f32_decode_vs_forward("4r", DSV2_ARCH, DSV2_F32_LAYERS,
+                                zero_counts, counts, router="pallas")
+    n_moe = DSV2_F32_LAYERS - cfg.moe_layer_start
+    for name in launched:
+        expect(got[name] == n_moe * (1 + F32_POSITIONS), f"4r float32: "
+               f"{name} launched {got[name]}, not {n_moe} x "
+               f"{1 + F32_POSITIONS}")
+    add(got)
+    peak(f"{DSV2_ARCH} float32 check")
+
+    # ---- the SSM, hybrid and audio archs at full size through the CLI
+    for arch, f32_layers in CLI_ARCHS:
+        acfg = configs.get_config(arch)
+        print(f"4r {arch}: {sized(acfg)} before allocating", flush=True)
+        res, got, secs = cli("4r", arch, 32, zero_counts, counts,
+                             "--prune", "0.3")
+        expect(not any(got.values()), f"4r {arch}: launched kernels {got}")
+        print(f"4r serve --oneshot {arch} --full-size {' '.join(SERVE_ARGS)} "
+              f"--top-k 32 --prune 0.3 ({stacked.segments(acfg)}): "
+              f"{secs:.1f} s; every logit finite, every sampled token inside "
+              f"its step's top-32; CLI's prefill "
+              f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{res['decode_tok_per_s']:.1f} tok/s (first calls)",
+              flush=True)
+        out[arch] = {"prefill_ms": res["prefill_s"] * 1e3,
+                     "decode_tok_per_s": res["decode_tok_per_s"]}
+        del res
+        peak(f"{arch} serve")
+        periodic = any(isinstance(s, stacked.Periodic)
+                       for s in stacked.segments(cut(acfg, f32_layers)))
+        expect(periodic == bool(acfg.hybrid_every or acfg.xattn_every),
+               f"4r {arch}: the float32 check's layout is not periodic")
+        f32_decode_vs_forward("4r", arch, f32_layers, zero_counts, counts,
+                              gate=GATE if acfg.frontend_tokens else None)
+        peak(f"{arch} float32 check")
+
+    # ---- mamba2's prefill through the cache: card == host; only the
+    # first prompt token enters the SSM state, as the reference's
+    base = configs.get_config("mamba2_1_3b")
+    scfg = dataclasses.replace(cut(base, SSM_PREFILL_LAYERS),
+                               param_dtype="float32",
+                               compute_dtype="float32")
+    p = stacked.init_params(
+        scfg, torch.Generator(device=dev).manual_seed(4), dev)
+    hp = tree.map_with_path(lambda _, t: t.cpu(), p)
+    toks = np.random.default_rng(4).integers(0, scfg.vocab, (2, 16))
+    runs = []
+    for params, where in ((p, dev), (hp, torch.device("cpu"))):
+        caches = stacked.init_cache(scfg, 2, 16, where)
+        lg, caches, _ = stacked.forward(params, scfg,
+                                        torch.as_tensor(toks, device=where),
+                                        caches=caches)
+        runs.append((lg, caches))
+    (lg, caches), (hlg, hcaches) = runs
+    worst = 0.0
+    pairs = [(lg, hlg)] + [
+        (t, dict(tree.flatten_with_path(hcaches))[path])
+        for path, t in tree.flatten_with_path(caches)]
+    for a, b in pairs:
+        a = a.cpu()
+        over = ((a - b).abs() - SSM_PREFILL_TOL
+                - SSM_PREFILL_TOL * b.abs()).max().item()
+        worst = max(worst, (a - b).abs().max().item())
+        expect(over <= 0, f"4r mamba2 cached prefill: card != host by "
+               f"{over} over rtol = atol = {SSM_PREFILL_TOL}")
+    fwd, _, _ = stacked.forward(p, scfg, torch.as_tensor(toks, device=dev))
+    d0 = (lg[:, 0] - fwd[:, 0]).abs().max().item()
+    d1 = (lg[:, 1:] - fwd[:, 1:]).abs().max().item()
+    expect(d0 <= F32_TOL * (1 + fwd[:, 0].abs().max().item()) and d1 > d0,
+           f"4r mamba2 cached prefill vs forward: position 0 {d0}, later "
+           f"{d1}")
+    print(f"4r mamba2_1_3b float32 at full width, {SSM_PREFILL_LAYERS} "
+          f"layers, (2, 16) prompt through the cache: logits, conv and SSM "
+          f"states on the card == the host's within rtol = atol = "
+          f"{SSM_PREFILL_TOL} (max |diff| {worst:.3e}); against the forward "
+          f"(the reference's one-token cached branch, reproduced): position "
+          f"0 max |diff| {d0:.3e}, positions 1-15 {d1:.3e}", flush=True)
+    out["ssm_cached_prefill"] = {"card_vs_host": worst, "pos0": d0,
+                                 "later": d1}
+    del p, hp, caches, hcaches, runs, pairs, lg, hlg, fwd
+    peak("mamba2 cached prefill, card and host")
+
+    # ---- llama-3.2-vision at width, 20 layers, the frontend stub; gates 0
+    lfull = configs.get_config(LLAMA_ARCH)
+    lcfg = cut(lfull, LLAMA_LAYERS)
+    segs = stacked.segments(lcfg)
+    expect(isinstance(segs[0], stacked.Periodic) and segs[0].reps == 2,
+           f"4r {LLAMA_ARCH}: {segs} is not two periods")
+    print(f"4r {LLAMA_ARCH} at {LLAMA_LAYERS} of {lfull.n_layers} layers "
+          f"({segs}): {sized(lcfg)} before allocating; frontend stub "
+          f"({SERVE_BATCH}, {lcfg.frontend_tokens}, {lcfg.frontend_dim}) "
+          "bf16", flush=True)
+    res, got, secs = checked_run(
+        f"4r {LLAMA_ARCH}", 32,
+        lambda: serve.serve(lcfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                            top_k=32, prune_rate=0.3),
+        zero_counts, counts)
+    expect(not any(got.values()), f"4r {LLAMA_ARCH}: launched kernels {got}")
+    print(f"4r serve.serve({LLAMA_ARCH} at {LLAMA_LAYERS} layers, gates 0 as "
+          f"initialised, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_NEW} new, top-k 32, prune 0.3): {secs:.1f} s in all; every "
+          f"logit finite, every sampled token inside its step's top-32; "
+          f"prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
+    out[LLAMA_ARCH] = {"prefill_ms": res["prefill_s"] * 1e3,
+                       "decode_tok_per_s": res["decode_tok_per_s"]}
+    del res
+    peak(f"{LLAMA_ARCH} serve")
+    f32_decode_vs_forward("4r", LLAMA_ARCH, LLAMA_F32_LAYERS, zero_counts,
+                          counts, gate=GATE)
+    peak(f"{LLAMA_ARCH} float32 check")
+    out["launches"] = launched
+    out["peaks_gib"] = peaks
     return out
 
 
@@ -1643,6 +1970,19 @@ def main() -> int:
         slice_launches[name] += n
     print(f"phase 4q: {time.perf_counter() - t0:.1f} s; launches of the "
           f"counted runs {serve_q['launches']}", flush=True)
+
+    # ---- 4r. the other five archs: deepseek-v2 at full width through the
+    # fused router, mamba2, zamba2 and musicgen at full size through the
+    # CLI, llama-3.2-vision with its frontend stub; float32 decode against
+    # forward for each new layer kind
+    t0 = time.perf_counter()
+    serve_r = phase_4r(card, zero_counts, counts)
+    for name, n in serve_r["launches"].items():
+        slice_launches[name] += n
+    print(f"phase 4r: {time.perf_counter() - t0:.1f} s; launches of the "
+          f"counted runs {serve_r['launches']}; peak device memory a step "
+          + ", ".join(f"{k} {v:.2f} GiB"
+                      for k, v in serve_r["peaks_gib"].items()), flush=True)
 
     # ---- 5. times
     B, W, N = planes.shape

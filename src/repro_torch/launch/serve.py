@@ -99,11 +99,13 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
     """Batched prefill of a random prompt, then ``max_new - 1`` decode
     steps with top-k sampling, over random weights drawn from ``seed`` on
     ``device`` (``None``: the card).  Returns the tokens and the times."""
+    from repro_torch.data import pipeline as dp
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import sampling, stacked
     from repro_torch.pruning import insitu
 
     dev = backend.resolve_device(device)
+    wf = bool(cfg.frontend_tokens)
     max_len = prompt_len + max_new
     params = stacked.init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), dev)
@@ -116,17 +118,19 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
         print(f"[serve] in-situ pruned: weight sparsity "
               f"{pstats['weight_sparsity']:.1%}")
 
-    prefill = steps_lib.make_prefill_step(cfg)
-    decode = steps_lib.make_decode_step(cfg)
+    prefill = steps_lib.make_prefill_step(cfg, with_frontend=wf)
+    decode = steps_lib.make_decode_step(cfg, with_frontend=wf)
     # the reference's prompt: the same numpy draw from the same seed
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
                              dtype=torch.int32, device=dev)
+    # the VLM / audio frontend stub, given to prefill and every decode step
+    fe = (dp.frontend_stub(cfg, batch, dev),) if wf else ()
     sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
 
     caches = stacked.init_cache(cfg, batch, max_len, dev)
     t0 = time.monotonic()
-    logits, caches = prefill(params, prompt, caches)
+    logits, caches = prefill(params, prompt, caches, *fe)
     sync()
     prefill_s = time.monotonic() - t0
 
@@ -137,7 +141,7 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
     t0 = time.monotonic()
     for _ in range(max_new - 1):
         pos = pos + 1
-        logits, caches = decode(params, tok, pos, caches)
+        logits, caches = decode(params, tok, pos, caches, *fe)
         tok = sampling.sample_logits(logits[:, -1, :], gen, top_k)[:, None]
         out.append(tok)
     seq = torch.cat(out, dim=1).cpu().numpy()

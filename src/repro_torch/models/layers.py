@@ -5,15 +5,16 @@ the reference's weights across; every layer is an (init, apply) pair.
 
 Covers RMSNorm (+ qk_norm), non-parametric LayerNorm (OLMo), interleaved
 RoPE, GQA/MQA attention with a head_dim override (Gemma) and its KV cache,
-SwiGLU/GeGLU MLPs, the embedding and the LM head.  MLA and cross-attention
-(DeepSeek-V2, Llama-3.2-Vision, MusicGen) are ROADMAP item A12b.
+cross-attention over frontend embeddings (Llama-3.2-Vision, MusicGen), MLA
+with weight absorption for decode (DeepSeek-V2) and its latent cache,
+SwiGLU/GeGLU MLPs, the embedding and the LM head.
 
 The reference's ``shard.constrain`` calls are GSPMD sharding hints; a
 one-card path has no mesh, so they are left out here.
 
 Products whose reference asks for float32 out of bfloat16 operands (the
-attention scores, the LM head) go through :func:`matmul_f32`, which never
-rounds the product to the operands' type.
+attention scores, MLA's latent scores, the LM head) go through
+:func:`matmul_f32`, which never rounds the product to the operands' type.
 """
 from __future__ import annotations
 
@@ -247,6 +248,147 @@ def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,
     shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype(), device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype(), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM image-fusion layers; Llama-3.2-Vision style gating)
+# ---------------------------------------------------------------------------
+
+
+def init_xattn(cfg: ArchConfig, gen, device) -> Dict:
+    """Queries from the text stream, keys and values projected from the
+    frontend's ``frontend_dim``; the tanh gate starts at 0, so at init the
+    layer adds exactly 0, as the reference's."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    fd = cfg.frontend_dim or d
+    pd = cfg.pdtype()
+    return {
+        "wq": _init(gen, (d, H * hd), pd, device),
+        "wk": _init(gen, (fd, KV * hd), pd, device),
+        "wv": _init(gen, (fd, KV * hd), pd, device),
+        "wo": _init(gen, (H * hd, d), pd, device),
+        "gate": torch.zeros((), dtype=pd, device=device),
+    }
+
+
+def apply_xattn(params: Dict, x: torch.Tensor, enc: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """x: (B,T,d) text stream; enc: (B,F,frontend_dim) frontend embeddings.
+    Non-causal GQA over the F frontend tokens, scaled by tanh(gate)."""
+    B, T, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ params["wq"]).reshape(B, T, H, hd)
+    k = (enc @ params["wk"]).reshape(B, enc.shape[1], KV, hd)
+    v = (enc @ params["wv"]).reshape(B, enc.shape[1], KV, hd)
+    out = _sdpa(q, k, v, causal=False)
+    out = out.reshape(B, T, H * hd) @ params["wo"]
+    return torch.tanh(params["gate"]).to(x.dtype) * out
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ArchConfig, gen, device) -> Dict:
+    """A low-rank query (``q_lora_rank`` > 0) or a full one (``wq``), the
+    joint latent ``wkv_a`` (kv_lora_rank + the shared RoPE key), and the
+    per-head up-projections of the latent to keys and values."""
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    L, pd = cfg.kv_lora_rank, cfg.pdtype()
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = _init(gen, (d, cfg.q_lora_rank), pd, device)
+        p["q_norm"] = _ones(cfg.q_lora_rank, pd, device)
+        p["wq_b"] = _init(gen, (cfg.q_lora_rank, H * (dn + dr)), pd, device)
+    else:
+        p["wq"] = _init(gen, (d, H * (dn + dr)), pd, device)
+    p["wkv_a"] = _init(gen, (d, L + dr), pd, device)
+    p["kv_norm"] = _ones(L, pd, device)
+    p["wk_b"] = _init(gen, (L, H * dn), pd, device)
+    p["wv_b"] = _init(gen, (L, H * dv), pd, device)
+    p["wo"] = _init(gen, (H * dv, d), pd, device)
+    return p
+
+
+def _mla_q(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor):
+    """(q_nope (B,T,H,dn), q_rope (B,T,H,dr) rotated)."""
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        ql = _head_rms(x @ params["wq_a"], params["q_norm"])
+        q = (ql @ params["wq_b"]).reshape(B, T, H, dn + dr)
+    else:
+        q = (x @ params["wq"]).reshape(B, T, H, dn + dr)
+    return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def apply_mla(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+              positions: torch.Tensor, cache: Optional[Dict] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Without a cache (training / prefill): the naive expansion, the one
+    RoPE key of a token broadcast over the heads, through :func:`_sdpa`
+    (key width dn + dr, value width dv).  With a cache (decode, one token
+    or a whole prompt): the latent and the RoPE key are written into it in
+    place, and the queries attend in latent space with the key and value
+    up-projections absorbed into them (the returned cache is the same
+    dict).  Both score products come out in float32; ``q_lat``, ``o_lat``
+    and the probabilities are in the compute dtype, as the reference's."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    L = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+
+    kv = x @ params["wkv_a"]                                  # (B,T,L+dr)
+    c_kv = _head_rms(kv[..., :L], params["kv_norm"])          # latent
+    k_rope = rope(kv[..., L:][:, :, None, :], positions, cfg.rope_theta)
+
+    if cache is None:
+        k_nope = (c_kv @ params["wk_b"]).reshape(B, T, H, dn)
+        v = (c_kv @ params["wv_b"]).reshape(B, T, H, dv)
+        k = torch.cat([k_nope, k_rope.expand(B, T, H, dr)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = _sdpa(q, k, v, causal=True, q_pos=positions,
+                    impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+        return out.reshape(B, T, H * dv) @ params["wo"], None
+
+    # ---- decode: absorbed attention in latent space -----------------
+    idx = positions[:, 0]
+    _write_rows(cache["c_kv"], c_kv, idx)
+    _write_rows(cache["k_rope"], k_rope[:, :, 0, :], idx)
+    cc, cr = cache["c_kv"], cache["k_rope"]                   # (B,S,L|dr)
+    S = cc.shape[1]
+    # absorb W_uk into q: q_lat (B,T,H,L)
+    q_lat = torch.einsum("bthn,lhn->bthl", q_nope,
+                         params["wk_b"].reshape(L, H, dn))
+    # (B, H*T, L|dr) @ (B, L|dr, S): the two score products in float32
+    scores = (matmul_f32(q_lat.permute(0, 2, 1, 3).reshape(B, H * T, L),
+                         cc.transpose(1, 2))
+              + matmul_f32(q_rope.permute(0, 2, 1, 3).reshape(B, H * T, dr),
+                           cr.transpose(1, 2))).reshape(B, H, T, S)
+    scores = scores / math.sqrt(dn + dr)
+    kp = torch.arange(S, device=x.device)[None, :]
+    scores = torch.where(_causal_mask(positions, kp, idx + T), scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = (probs.reshape(B, H * T, S) @ cc).reshape(B, H, T, L)
+    out = torch.einsum("bhtl,lhv->bthv", o_lat,
+                       params["wv_b"].reshape(L, H, dv))
+    return out.reshape(B, T, H * dv) @ params["wo"], cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, device,
+                   lead: Tuple[int, ...] = ()) -> Dict:
+    """Zeroed latent and RoPE-key caches, (*lead, batch, max_len,
+    kv_lora_rank | qk_rope_head_dim) in the compute dtype."""
+    shape = lead + (batch, max_len)
+    return {"c_kv": torch.zeros(shape + (cfg.kv_lora_rank,),
+                                dtype=cfg.dtype(), device=device),
+            "k_rope": torch.zeros(shape + (cfg.qk_rope_head_dim,),
+                                  dtype=cfg.dtype(), device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@ Identical consecutive layers hold their parameters STACKED along a
 leading axis (the reference's layout, leaf for leaf, so its weights carry
 across with ``tree.params_from_numpy``).  Where the reference scans a run
 under ``lax.scan``, the port loops over the leading axis in Python on
-views ``leaf[i]``: nothing is copied, and a KV cache written through a
-view lands in the stacked cache.
+views ``leaf[i]``: nothing is copied, and a cache written through a view
+lands in the stacked cache.  A periodic pattern (a fusion layer every few
+layers, zamba2's shared block) stacks each of its inner runs over
+``(reps,)`` for a run of one layer and ``(reps, count)`` otherwise; the
+port loops over the repetitions, then over the inner runs.
 
 Layer grouping:
 
@@ -15,11 +18,6 @@ Layer grouping:
   llama-vision: 10 x ([attn x9] + [attn+xattn x1])      -> periodic
   zamba2      : 9 x ([ssm x5] + [shared-attn x1])       -> periodic
   musicgen    : 4 x ([attn x11] + [attn+xattn x1])      -> periodic
-
-The SSM, MLA, cross-attention and shared-attention blocks, and with them
-the periodic patterns, are not ported yet (ROADMAP.md item A12b) and
-raise ``NotImplementedError``; the layer grouping (``segments``) and
-``from_layerwise`` cover all ten archs.
 """
 from __future__ import annotations
 
@@ -30,8 +28,9 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ATTN, ArchConfig
+from repro_torch.models.config import ATTN, MLA, SSM, ArchConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,20 +83,12 @@ def segments(cfg: ArchConfig) -> List:
     return list(_rle(sigs))
 
 
-def _runs(cfg: ArchConfig) -> List[Run]:
-    """The config's segments, all runs: a periodic pattern (a fusion layer
-    or zamba2's shared block every few layers) is not ported yet."""
-    segs = segments(cfg)
-    if any(isinstance(seg, Periodic) for seg in segs):
-        raise T.unported("a periodic layer pattern (cross-attention or the "
-                         "hybrid shared block)")
-    return segs
-
-
-def _lead(run: Run) -> Tuple[int, ...]:
+def _lead(run: Run, reps: int = 0) -> Tuple[int, ...]:
     """The stacked leading dims of a run's leaves: (count,) for a run of
-    more than one layer."""
-    return (run.count,) if run.count > 1 else ()
+    more than one layer; inside a periodic pattern of ``reps`` repetitions,
+    (reps,) or (reps, count)."""
+    rep = (reps,) if reps else ()
+    return rep + ((run.count,) if run.count > 1 else ())
 
 
 def _index(t, i):
@@ -111,35 +102,33 @@ def _index(t, i):
 
 
 def _init_block(cfg: ArchConfig, sig: Sig, gen, device) -> Dict:
-    if sig.kind != ATTN:
-        raise T.unported(f"a block of kind {sig.kind!r}")
-    if sig.shared:
-        raise T.unported("the hybrid shared attention block")
-    if sig.xattn:
-        raise T.unported("the cross-attention layer")
-    return T.init_block(cfg, sig.moe, gen, device)
+    return T.init_block(cfg, sig.kind, gen, device, moe=sig.moe,
+                        xattn=sig.xattn, shared=sig.shared)
 
 
 def _stacked(lead: Tuple[int, ...], make: Callable[[], Dict]) -> Dict:
     """A block tree stacked over ``lead``, filled one layer at a time into
-    leaves allocated once (never a whole stacked leaf drawn at once)."""
+    leaves allocated once (never a whole stacked leaf drawn at once).  Only
+    the layer being made lives beside the stack: each is dropped once it
+    is copied in."""
     if not lead:
         return make()
     n = 1
     for s in lead:
         n *= s
-    first = make()
+    blk = make()
     out = tree.map_with_path(
         lambda _, t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
-                                 device=t.device), first)
-    flat = tree.map_with_path(
-        lambda _, t: t.reshape((n,) + t.shape[len(lead):]), out)
+                                 device=t.device), blk)
+    flat = tree.flatten_with_path(tree.map_with_path(
+        lambda _, t: t.reshape((n,) + t.shape[len(lead):]), out))
     for i in range(n):
-        blk = first if i == 0 else make()
+        if i:
+            blk = make()
         src = dict(tree.flatten_with_path(blk))
-        for path, dst in tree.flatten_with_path(flat):
+        for path, dst in flat:
             dst[i].copy_(src[path])
-        del blk
+        del blk, src
     return out
 
 
@@ -147,16 +136,20 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                 device) -> Dict:
     """Random params in the stacked layout, drawn from ``gen`` (a generator
     on ``device``; None on the meta device)."""
-    if cfg.hybrid_every:
-        raise T.unported("the hybrid shared attention block")
     device = torch.device(device)
-    runs = _runs(cfg)
     params: Dict = {"embed": L.init_embed(cfg, gen, device),
                     "final_norm": L.init_norm(cfg, gen, device)}
+    if cfg.hybrid_every:
+        params["shared_attn"] = T.init_shared_attn(cfg, gen, device)
+
+    def stacked_run(run: Run, reps: int = 0) -> Dict:
+        return _stacked(_lead(run, reps),
+                        lambda: _init_block(cfg, run.sig, gen, device))
+
     params["segments"] = [
-        _stacked(_lead(run),
-                 lambda s=run.sig: _init_block(cfg, s, gen, device))
-        for run in runs]
+        stacked_run(seg) if isinstance(seg, Run)
+        else {"inner": [stacked_run(run, seg.reps) for run in seg.inner]}
+        for seg in segments(cfg)]
     return params
 
 
@@ -222,8 +215,9 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             frontend: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[List] = None):
-    """tokens: (B, T) int.  Returns (logits (B,T,V) float32, caches, aux);
-    given caches are written in place and returned."""
+    """tokens: (B, T) int; frontend: (B, F, frontend_dim) embeddings for
+    the fusion layers, or None.  Returns (logits (B,T,V) float32, caches,
+    aux); given caches are written in place and returned."""
     B, Tn = tokens.shape
     if positions is None:
         positions = torch.arange(Tn, dtype=torch.int32,
@@ -231,9 +225,18 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = L.embed_tokens(params["embed"], tokens)
     shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for si, (run, sp) in enumerate(zip(_runs(cfg), params["segments"])):
-        x, aux = _run(shared, run, sp, cfg, x, aux, positions, frontend,
-                      caches[si] if caches is not None else None)
+    for si, (seg, sp) in enumerate(zip(segments(cfg), params["segments"])):
+        cache = caches[si] if caches is not None else None
+        if isinstance(seg, Run):
+            x, aux = _run(shared, seg, sp, cfg, x, aux, positions, frontend,
+                          cache)
+            continue
+        for r in range(seg.reps):
+            for j, run in enumerate(seg.inner):
+                x, aux = _run(shared, run, _index(sp["inner"][j], r), cfg, x,
+                              aux, positions, frontend,
+                              None if cache is None
+                              else _index(cache[j], r))
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], x), caches, aux
 
@@ -245,14 +248,23 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _cache_for_sig(cfg: ArchConfig, sig: Sig, batch: int, max_len: int,
                    device, lead: Tuple[int, ...] = ()) -> Dict:
-    if sig.kind != ATTN:
-        raise T.unported(f"the cache of a block of kind {sig.kind!r}")
+    if sig.kind == SSM:
+        return M.init_ssm_cache(cfg, batch, device, lead)
+    if sig.kind == MLA:
+        return L.init_mla_cache(cfg, batch, max_len, device, lead)
     return L.init_attn_cache(cfg, batch, max_len, device, lead)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> List:
-    return [_cache_for_sig(cfg, run.sig, batch, max_len, device, _lead(run))
-            for run in _runs(cfg)]
+    """Zeroed caches in the stacked layout: a run's stacked over its
+    layers, a periodic pattern's a list over its inner runs."""
+    def of(run: Run, reps: int = 0) -> Dict:
+        return _cache_for_sig(cfg, run.sig, batch, max_len, device,
+                              _lead(run, reps))
+
+    return [of(seg) if isinstance(seg, Run)
+            else [of(run, seg.reps) for run in seg.inner]
+            for seg in segments(cfg)]
 
 
 def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,

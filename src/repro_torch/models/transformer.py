@@ -8,11 +8,14 @@ A model is a nested dict of tensors + plain functions:
 * ``init_cache(cfg, batch, max_len, device)`` / ``decode_step(...)`` ->
   the serving path
 
-MoE layers replace the MLP from ``moe_layer_start`` on when ``cfg.moe``.
-In-situ pruning hooks into the path via ``prune_masks`` — per-layer
-keep-masks over the MLP's input lanes.  Blocks of the kinds not ported yet
-(SSM, MLA, cross-attention, zamba2's shared attention block) raise
-``NotImplementedError``: they are ROADMAP item A12b.
+Layer kinds per config: attn (GQA) / mla (DeepSeek-V2) / ssm (Mamba2
+SSD) / an xattn layer after the block every ``xattn_every`` layers for the
+VLM and audio archs.  Zamba2-style hybrids reuse ONE shared attention
+block (attention, norm2, MLP) every ``hybrid_every`` layers; each of its
+positions keeps its own norm1 and KV cache.  MoE layers replace the MLP
+from ``moe_layer_start`` on when ``cfg.moe``.  In-situ pruning hooks into
+the path via ``prune_masks`` — per-layer keep-masks over the MLP's input
+lanes.
 """
 from __future__ import annotations
 
@@ -22,14 +25,9 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ATTN, MLA, SSM, ArchConfig
-
-
-def unported(what: str):
-    """The error a block kind that is not ported yet raises."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md item A12b)")
 
 
 def _layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -49,28 +47,33 @@ def _has_xattn(cfg: ArchConfig, i: int) -> bool:
     return bool(cfg.xattn_every and (i + 1) % cfg.xattn_every == 0)
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a config with a layer kind that is not ported yet."""
-    kinds = set(_layer_kinds(cfg))
-    if SSM in kinds:
-        raise unported("the Mamba2 SSD block (kind 'ssm')")
-    if MLA in kinds:
-        raise unported("multi-head latent attention (kind 'mla')")
-    if cfg.hybrid_every:
-        raise unported("the hybrid shared attention block")
-    if cfg.xattn_every:
-        raise unported("the cross-attention layer")
+def init_shared_attn(cfg: ArchConfig, gen, device) -> Dict:
+    """Zamba2's shared block: attention, norm2 and the MLP, made once."""
+    return {"attn": L.init_attn(cfg, gen, device),
+            "norm2": L.init_norm(cfg, gen, device),
+            "mlp": L.init_mlp(cfg, gen, device)}
 
 
-def init_block(cfg: ArchConfig, moe: bool, gen, device) -> Dict:
-    """One attention block's params: norm1, attn, norm2, and moe or mlp."""
-    blk: Dict = {"norm1": L.init_norm(cfg, gen, device),
-                 "attn": L.init_attn(cfg, gen, device),
-                 "norm2": L.init_norm(cfg, gen, device)}
-    if moe:
-        blk["moe"] = MOE.init_moe(cfg, gen, device)
-    else:
-        blk["mlp"] = L.init_mlp(cfg, gen, device)
+def init_block(cfg: ArchConfig, kind: str, gen, device, *,
+               moe: bool = False, xattn: bool = False,
+               shared: bool = False) -> Dict:
+    """One block's params: norm1, then the SSM, or (unless the block uses
+    the shared attention block) attention or MLA with norm2 and moe or
+    mlp; then xattn and xnorm for a fusion layer."""
+    blk: Dict = {"norm1": L.init_norm(cfg, gen, device)}
+    if kind == SSM:
+        blk["ssm"] = M.init_ssm(cfg, gen, device)
+    elif not shared:
+        blk["attn"] = (L.init_mla(cfg, gen, device) if kind == MLA
+                       else L.init_attn(cfg, gen, device))
+        blk["norm2"] = L.init_norm(cfg, gen, device)
+        if moe:
+            blk["moe"] = MOE.init_moe(cfg, gen, device)
+        else:
+            blk["mlp"] = L.init_mlp(cfg, gen, device)
+    if xattn:
+        blk["xattn"] = L.init_xattn(cfg, gen, device)
+        blk["xnorm"] = L.init_norm(cfg, gen, device)
     return blk
 
 
@@ -78,13 +81,18 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                 device) -> Dict:
     """Random params drawn from ``gen`` (a generator on ``device``; None on
     the meta device, which allocates nothing)."""
-    check_ported(cfg)
     device = torch.device(device)
     params: Dict = {"embed": L.init_embed(cfg, gen, device),
                     "final_norm": L.init_norm(cfg, gen, device)}
-    params["blocks"] = [init_block(cfg, _is_moe_layer(cfg, i, kind), gen,
-                                   device)
-                        for i, kind in enumerate(_layer_kinds(cfg))]
+    blocks = []
+    for i, kind in enumerate(_layer_kinds(cfg)):
+        shared = bool(cfg.hybrid_every) and kind == ATTN
+        if shared and "shared_attn" not in params:
+            params["shared_attn"] = init_shared_attn(cfg, gen, device)
+        blocks.append(init_block(cfg, kind, gen, device,
+                                 moe=_is_moe_layer(cfg, i, kind),
+                                 xattn=_has_xattn(cfg, i), shared=shared))
+    params["blocks"] = blocks
     return params
 
 
@@ -93,28 +101,35 @@ def apply_block(shared_attn: Optional[Dict], blk: Dict, kind: str,
                 frontend: Optional[torch.Tensor], cache: Optional[Dict],
                 prune_mask: Optional[torch.Tensor] = None):
     """One block -> (x, cache, aux).  Structure is read off the param dict:
-    'moe'/'mlp' membership decides the path.  ``prune_mask`` (d_model,)
-    masks the MLP's input lanes (in-situ pruning, paper Algorithm S2)."""
-    if kind == SSM:
-        raise unported("the Mamba2 SSD block (kind 'ssm')")
-    if kind == MLA:
-        raise unported("multi-head latent attention (kind 'mla')")
-    if "attn" not in blk:
-        raise unported("the hybrid shared attention block")
-    if "xattn" in blk:
-        raise unported("the cross-attention layer")
+    'ssm'/'attn'/'moe'/'mlp'/'xattn' membership decides the path; a block
+    without its own attention uses ``shared_attn`` (zamba2).  A given cache
+    is written in place.  ``prune_mask`` (d_model,) masks the MLP's input
+    lanes (in-situ pruning, paper Algorithm S2)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.apply_norm(blk["norm1"], x, cfg)
-    y, new_cache = L.apply_attn(blk["attn"], h, cfg, positions, cache)
-    x = x + y
-    h = L.apply_norm(blk["norm2"], x, cfg)
-    if "moe" in blk:
-        y, aux = MOE.apply_moe(blk["moe"], h, cfg)
+    if kind == SSM and "ssm" in blk:
+        h = L.apply_norm(blk["norm1"], x, cfg)
+        y, cache = M.apply_ssm(blk["ssm"], h, cfg, cache)
+        x = x + y
     else:
-        if prune_mask is not None:
-            h = h * prune_mask.to(h.dtype)[None, None, :]
-        y = L.apply_mlp(blk["mlp"], h, cfg)
-    return x + y, new_cache, aux
+        ablk = shared_attn if "attn" not in blk else blk
+        h = L.apply_norm(blk["norm1"], x, cfg)
+        if kind == MLA:
+            y, cache = L.apply_mla(ablk["attn"], h, cfg, positions, cache)
+        else:
+            y, cache = L.apply_attn(ablk["attn"], h, cfg, positions, cache)
+        x = x + y
+        h = L.apply_norm(ablk["norm2"], x, cfg)
+        if "moe" in blk:
+            y, aux = MOE.apply_moe(blk["moe"], h, cfg)
+        else:
+            if prune_mask is not None:
+                h = h * prune_mask.to(h.dtype)[None, None, :]
+            y = L.apply_mlp(ablk.get("mlp", blk.get("mlp")), h, cfg)
+        x = x + y
+    if "xattn" in blk and frontend is not None:
+        h = L.apply_norm(blk["xnorm"], x, cfg)
+        x = x + L.apply_xattn(blk["xattn"], h, frontend, cfg)
+    return x, cache, aux
 
 
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -146,9 +161,15 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> List:
-    check_ported(cfg)
-    return [L.init_attn_cache(cfg, batch, max_len, device)
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for kind in _layer_kinds(cfg):
+        if kind == SSM:
+            caches.append(M.init_ssm_cache(cfg, batch, device))
+        elif kind == MLA:
+            caches.append(L.init_mla_cache(cfg, batch, max_len, device))
+        else:
+            caches.append(L.init_attn_cache(cfg, batch, max_len, device))
+    return caches
 
 
 def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,

@@ -483,3 +483,25 @@ def test_autotune_cell_on_card(cuda_device):
     assert key.startswith("unsigned|N256|m8|B4|" + name + "/sm_")
     assert row["us"] > 0
     assert autotune.nearest_cell("unsigned", 256, 8, 4, table=table) == key
+
+
+@pytest.mark.cuda
+def test_deepseek_v2_serves_through_the_router_kernels_on_card(cuda_device):
+    # deepseek-v2 reduced (1 dense MLA layer, then 3 MoE MLA layers):
+    # every MoE layer of every forward (the prefill and max_new - 1 decode
+    # steps) routes through the key-pack and top-k kernels once
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(
+        configs.get_config("deepseek_v2_236b").reduced(n_layers=4),
+        router_impl="pallas")
+    moe_layers = cfg.n_layers - cfg.moe_layer_start
+    before = (radix_topk.LAUNCHES, bitplane_pack.LAUNCHES)
+    res = serve.serve(cfg, 2, 4, 5, top_k=8)
+    forwards = 1 + (5 - 1)
+    assert (radix_topk.LAUNCHES - before[0],
+            bitplane_pack.LAUNCHES - before[1]) == \
+        (moe_layers * forwards,) * 2
+    assert res["tokens"].shape == (2, 9)
+    assert ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all()

@@ -15,16 +15,18 @@ import torch
 from repro import configs as ref_configs
 from repro.models import config as RC
 from repro.models import layers as RL
+from repro.models import mamba2 as RM
 from repro_torch import configs, tree
 from repro_torch.models import config as C
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 CPU = "cpu"
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
-# the five archs of the dense and MoE families
-ARCHS = ["olmo_1b", "qwen3_14b", "gemma_7b", "deepseek_7b",
-         "qwen2_moe_a2_7b"]
+# all ten archs; the attention tests take those with attention heads
+ARCHS = list(ref_configs.ARCH_IDS)
+ATTN_ARCHS = [a for a in ARCHS if ref_configs.get_config(a).n_heads]
 
 
 def _cfgs(arch, **kw):
@@ -155,9 +157,16 @@ def test_init_scale_uses_leading_dim():
 def test_init_tree_matches_reference_layout(arch):
     rcfg, cfg = _cfgs(arch)
     gen = torch.Generator().manual_seed(0)
-    for rfn, fn in ((RL.init_attn, L.init_attn), (RL.init_mlp, L.init_mlp),
-                    (RL.init_embed, L.init_embed),
-                    (RL.init_norm, L.init_norm)):
+    pairs = [(RL.init_attn, L.init_attn), (RL.init_mlp, L.init_mlp),
+             (RL.init_embed, L.init_embed), (RL.init_norm, L.init_norm)]
+    # and the arch's own layer kinds: MLA, cross-attention, the SSM block
+    if cfg.kv_lora_rank:
+        pairs.append((RL.init_mla, L.init_mla))
+    if cfg.frontend_tokens:
+        pairs.append((RL.init_xattn, L.init_xattn))
+    if cfg.ssm_state:
+        pairs.append((RM.init_ssm, M.init_ssm))
+    for rfn, fn in pairs:
         want = jax.tree_util.tree_flatten_with_path(rfn(rcfg, KEY))[0]
         got = tree.flatten_with_path(fn(cfg, gen, torch.device(CPU)))
         assert [tree.keystr(p) for p, _ in got] == \
@@ -177,7 +186,7 @@ def _attn_pair(arch, seed=0):
     return rcfg, cfg, rp, tree.params_from_numpy(rp, CPU)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_apply_attn_matches_reference(arch):
     rcfg, cfg, rp, tp = _attn_pair(arch)
     x = np.random.default_rng(6).standard_normal((2, 9, rcfg.d_model))

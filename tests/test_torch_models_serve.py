@@ -135,6 +135,45 @@ def test_oneshot_cli_runs(arch, router, capsys):
     assert ((tokens >= 0) & (tokens < 128)).all()
 
 
+@pytest.mark.parametrize("arch", ["qwen3_14b", "gemma_7b", "deepseek_7b",
+                                  "deepseek_v2_236b", "mamba2_1_3b",
+                                  "zamba2_2_7b", "llama_3_2_vision_90b",
+                                  "musicgen_medium"])
+def test_oneshot_cli_runs_every_arch(arch, capsys):
+    # the other eight archs (olmo-1b and qwen2-moe above), at 4 layers: a
+    # periodic segment for zamba2, llama and musicgen, a stacked MoE run
+    # for deepseek-v2; mamba2 has no MLP to prune
+    res = serve.main(_oneshot(arch, "--top-k", "8", "--prune", "0.3",
+                              "--layers", "4"))
+    out = capsys.readouterr().out.splitlines()
+    sparsity = float(re.match(r"^\[serve\] in-situ pruned: weight sparsity "
+                              r"(\d+\.\d)%$", out[0]).group(1))
+    assert (sparsity == 0.0) == (arch == "mamba2_1_3b")
+    assert SUMMARY.match(out[1])
+    assert res["tokens"].shape == (2, 9)
+    assert ((res["tokens"] >= 0) & (res["tokens"] < 128)).all()
+
+
+def test_oneshot_gives_the_frontend_to_every_step(monkeypatch):
+    """A fusion arch's prefill and each decode step get the frontend stub,
+    as the reference's ``serve`` passes it."""
+    from repro_torch.data import pipeline
+    from repro_torch.models import stacked
+    seen = []
+    real = stacked.forward
+
+    def spy(params, cfg, tokens, frontend=None, **kw):
+        seen.append(frontend)
+        return real(params, cfg, tokens, frontend=frontend, **kw)
+
+    monkeypatch.setattr(stacked, "forward", spy)
+    cfg = configs.get_config("musicgen_medium").reduced(n_layers=4)
+    serve.serve(cfg, 2, 4, 5, top_k=8, device=CPU)
+    want = pipeline.frontend_stub(cfg, 2, CPU)
+    assert len(seen) == 5
+    assert all(fe is not None and torch.equal(fe, want) for fe in seen)
+
+
 def test_oneshot_every_router_serves_the_same_tokens():
     runs = [serve.main(_oneshot("qwen2_moe_a2_7b", "--top-k", "8",
                                 "--router-impl", r))["tokens"]

@@ -1,10 +1,15 @@
 """The port's backbones (``repro_torch.models.transformer`` / ``stacked``)
 and parameter accounting against the reference's on the CPU, on the
-reference's weights.  Exact: the layer grouping and ``from_layerwise`` for
-all ten archs, the parameter counts and bytes at full size for the dense
-and MoE archs.  Logits of both forwards at rtol = atol = 1e-4.  The
-serving path (caches, decode) is in ``test_torch_models_decode.py``."""
+reference's weights, for all ten archs.  Exact: the layer grouping,
+``from_layerwise``, the parameter counts and bytes at full size, the
+in-situ prune masks.  Logits of both forwards at rtol = atol = 1e-4, with
+the frontend stub given to the VLM and audio archs and their cross-attention
+gates opened to 0.5 (at init they are 0 and the layer adds nothing).  The
+periodic archs run at 4 layers, the first depth at which the reduced
+configs form a periodic segment.  The serving path (caches, decode) is in
+``test_torch_models_decode.py``."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,26 +18,56 @@ import pytest
 import torch
 
 from repro import configs as ref_configs
+from repro.data import pipeline as RP
 from repro.models import accounting as RA
 from repro.models import stacked as RS
 from repro.models import transformer as RT
 from repro.models.config import ALL_SHAPES
+from repro.pruning import insitu as ref_insitu
 from repro_torch import configs, tree
+from repro_torch.data import pipeline as P
 from repro_torch.models import accounting as A
 from repro_torch.models import stacked as S
 from repro_torch.models import transformer as T
+from repro_torch.pruning import insitu
 
 CPU = "cpu"
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["olmo_1b", "qwen3_14b", "gemma_7b", "deepseek_7b",
-         "qwen2_moe_a2_7b"]
-UNPORTED = ["deepseek_v2_236b", "zamba2_2_7b", "mamba2_1_3b",
-            "llama_3_2_vision_90b", "musicgen_medium"]
+ARCHS = list(ref_configs.ARCH_IDS)
+# reduced depths: a periodic segment needs n_layers // period > 1 (the
+# reduced period is 2); deepseek-v2 at 4 stacks 3 MoE layers after 1 dense
+LAYERS = {"zamba2_2_7b": 4, "llama_3_2_vision_90b": 4,
+          "musicgen_medium": 4, "deepseek_v2_236b": 4}
+# a period holding a run of more than one layer: leaves (reps, count, ...)
+LONG_PERIODS = {"zamba2_2_7b": dict(hybrid_every=3),
+                "llama_3_2_vision_90b": dict(xattn_every=3)}
 
 
 def _cfgs(arch, **kw):
+    kw.setdefault("n_layers", LAYERS.get(arch, 2))
     return (ref_configs.get_config(arch).reduced(**kw),
             configs.get_config(arch).reduced(**kw))
+
+
+def _long_period_cfgs(arch):
+    """6 layers of period 3: two repetitions of [run of 2, run of 1]."""
+    rcfg, cfg = _cfgs(arch, n_layers=6)
+    kw = LONG_PERIODS[arch]
+    return (dataclasses.replace(rcfg, **kw), dataclasses.replace(cfg, **kw))
+
+
+def _open_gates(params):
+    """The reference's params with every cross-attention gate at 0.5."""
+    return jax.tree_util.tree_map_with_path(
+        lambda p, a: jnp.full_like(a, 0.5)
+        if getattr(p[-1], "key", None) == "gate" else a, params)
+
+
+def _frontends(rcfg, cfg, batch):
+    """(the reference's frontend stub, the port's) or (None, None)."""
+    if not cfg.frontend_tokens:
+        return None, None
+    return RP.frontend_stub(rcfg, batch), P.frontend_stub(cfg, batch, CPU)
 
 
 def _tokens(cfg, shape, seed):
@@ -55,7 +90,7 @@ def stacked_params():
     out = {}
     for arch in ARCHS:
         rcfg, cfg = _cfgs(arch)
-        rp = RS.init_params(rcfg, jax.random.PRNGKey(0))
+        rp = _open_gates(RS.init_params(rcfg, jax.random.PRNGKey(0)))
         out[arch] = (rcfg, cfg, rp, tree.params_from_numpy(rp, CPU))
     return out
 
@@ -121,15 +156,18 @@ def test_stacked_init_fills_layers_from_the_generator():
         assert torch.equal(t, want[path]), tree.keystr(path)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_kinds_raise(arch):
-    cfg = configs.get_config(arch).reduced()
-    for fn in (lambda: S.init_params(cfg, torch.Generator(), CPU),
-               lambda: T.init_params(cfg, torch.Generator(), CPU),
-               lambda: A.param_count(configs.get_config(arch)),
-               lambda: S.init_cache(configs.get_config(arch), 1, 4, "meta")):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            fn()
+@pytest.mark.parametrize("arch", sorted(LONG_PERIODS))
+def test_long_period_layout_matches_reference(arch):
+    rcfg, cfg = _long_period_cfgs(arch)
+    seg = S.segments(cfg)[0]
+    assert isinstance(seg, S.Periodic) and seg.reps == 2
+    assert [r.count for r in seg.inner] == [2, 1]
+    want = jax.tree_util.tree_flatten_with_path(
+        RS.init_params(rcfg, jax.random.PRNGKey(0)))[0]
+    got = tree.flatten_with_path(
+        S.init_params(cfg, torch.Generator().manual_seed(0), CPU))
+    assert [(tree.keystr(p), tuple(t.shape)) for p, t in got] == \
+        [(jax.tree_util.keystr(p), a.shape) for p, a in want]
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +179,10 @@ def test_unported_kinds_raise(arch):
 def test_stacked_forward_matches_reference(arch, stacked_params):
     rcfg, cfg, rp, tp = stacked_params[arch]
     toks = _tokens(rcfg, (2, 12), 2)
-    want, _, aux_r = RS.forward(rp, rcfg, jnp.asarray(toks, jnp.int32))
-    got, caches, aux = S.forward(tp, cfg, torch.tensor(toks))
+    fe_r, fe = _frontends(rcfg, cfg, 2)
+    want, _, aux_r = RS.forward(rp, rcfg, jnp.asarray(toks, jnp.int32),
+                                frontend=fe_r)
+    got, caches, aux = S.forward(tp, cfg, torch.tensor(toks), frontend=fe)
     assert caches is None and got.dtype is torch.float32
     assert tuple(got.shape) == (2, 12, cfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -152,16 +192,48 @@ def test_stacked_forward_matches_reference(arch, stacked_params):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_layerwise_forward_matches_reference(arch):
     rcfg, cfg = _cfgs(arch)
-    lw = RT.init_params(rcfg, jax.random.PRNGKey(4))
+    lw = _open_gates(RT.init_params(rcfg, jax.random.PRNGKey(4)))
     tlw = tree.params_from_numpy(lw, CPU)
     toks = _tokens(rcfg, (2, 10), 3)
-    want, _, _ = RT.forward(lw, rcfg, jnp.asarray(toks, jnp.int32))
-    got, _, _ = T.forward(tlw, cfg, torch.tensor(toks))
+    fe_r, fe = _frontends(rcfg, cfg, 2)
+    want, _, _ = RT.forward(lw, rcfg, jnp.asarray(toks, jnp.int32),
+                            frontend=fe_r)
+    got, _, _ = T.forward(tlw, cfg, torch.tensor(toks), frontend=fe)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # the same weights stacked give the same logits
-    st, _, _ = S.forward(S.from_layerwise(cfg, tlw), cfg, torch.tensor(toks))
+    st, _, _ = S.forward(S.from_layerwise(cfg, tlw), cfg, torch.tensor(toks),
+                         frontend=fe)
     np.testing.assert_allclose(st.numpy(), got.numpy(), rtol=1e-5, atol=1e-5)
     assert T.param_count(tlw) == RT.param_count(lw)
+
+
+@pytest.mark.parametrize("arch", sorted(LONG_PERIODS))
+def test_long_period_forward_matches_reference(arch):
+    rcfg, cfg = _long_period_cfgs(arch)
+    rp = _open_gates(RS.init_params(rcfg, jax.random.PRNGKey(6)))
+    toks = _tokens(rcfg, (2, 8), 4)
+    fe_r, fe = _frontends(rcfg, cfg, 2)
+    want, _, _ = RS.forward(rp, rcfg, jnp.asarray(toks, jnp.int32),
+                            frontend=fe_r)
+    got, _, _ = S.forward(tree.params_from_numpy(rp, CPU), cfg,
+                          torch.tensor(toks), frontend=fe)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_frontend_is_read_only_by_the_fusion_layers():
+    """With the gates closed (as at init) the frontend changes nothing;
+    opened, it changes the logits."""
+    _, cfg = _cfgs("llama_3_2_vision_90b")
+    p = S.init_params(cfg, torch.Generator().manual_seed(5), CPU)
+    toks = torch.tensor(_tokens(cfg, (2, 6), 5))
+    fe = P.frontend_stub(cfg, 2, CPU)
+    bare, _, _ = S.forward(p, cfg, toks)
+    assert torch.equal(S.forward(p, cfg, toks, frontend=fe)[0], bare)
+    opened = tree.map_with_path(
+        lambda path, t: torch.full_like(t, 0.5) if path[-1] == "gate" else t,
+        p)
+    assert not torch.allclose(S.forward(opened, cfg, toks, frontend=fe)[0],
+                              bare)
 
 
 def test_prune_masks_match_reference():
@@ -183,7 +255,11 @@ def test_prune_masks_match_reference():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_full_size_accounting_matches_reference(arch):
+def test_full_size_accounting_matches_reference(arch, monkeypatch):
+    # each count re-traces the whole tree; one trace a package serves all
+    for mod in (A, RA):
+        monkeypatch.setattr(mod, "param_shapes",
+                            functools.lru_cache(mod.param_shapes))
     rcfg, cfg = ref_configs.get_config(arch), configs.get_config(arch)
     assert A.param_count(cfg) == RA.param_count(rcfg)
     assert A.param_bytes(cfg) == RA.param_bytes(rcfg)
@@ -192,6 +268,45 @@ def test_full_size_accounting_matches_reference(arch):
         assert A.model_flops(cfg, shape) == RA.model_flops(rcfg, shape)
     shapes = A.param_shapes(cfg)
     assert all(t.is_meta for _, t in tree.flatten_with_path(shapes))
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "zamba2_2_7b",
+                                  "mamba2_1_3b", "llama_3_2_vision_90b"])
+def test_prune_params_visits_the_reference_leaves(arch, stacked_params):
+    """The MLP inputs in-situ pruning zeroes: zamba2's shared block
+    (``shared_attn/mlp/wi``), deepseek-v2's dense MLP and MoE shared
+    experts (not the routed banks), the ``inner`` lists of a periodic
+    tree; mamba2 has no MLP (sparsity 0).  Masks and sparsity equal the
+    reference's exactly."""
+    rcfg, cfg, rp, tp = stacked_params[arch]
+    _, want = ref_insitu.prune_params(rp, rcfg, 0.3)
+    _, got = insitu.prune_params(tp, cfg, 0.3)
+    assert list(got["masks"]) == list(want["masks"])
+    for key, mask in want["masks"].items():
+        np.testing.assert_array_equal(got["masks"][key].numpy(),
+                                      np.asarray(mask))
+    assert got["weight_sparsity"] == want["weight_sparsity"]
+    assert (got["weight_sparsity"] == 0) == (arch == "mamba2_1_3b")
+    keys = " ".join(got["masks"])
+    if arch == "zamba2_2_7b":
+        assert "['shared_attn']['mlp']['wi']" in keys
+    if arch == "deepseek_v2_236b":
+        assert "['moe']['shared']['wi']" in keys and "['mlp']" in keys
+    if arch == "llama_3_2_vision_90b":
+        assert "['inner'][1]['mlp']['wi']" in keys
+
+
+def test_deepseek_v2_full_size_numbers():
+    cfg = configs.get_config("deepseek_v2_236b")
+    # 6 layers (1 dense + 5 MoE): 39.58 GiB by the reference's accounting
+    six = dataclasses.replace(cfg, n_layers=6, layer_pattern=("mla",) * 6)
+    assert A.param_bytes(six) == RA.param_bytes(
+        dataclasses.replace(ref_configs.get_config("deepseek_v2_236b"),
+                            n_layers=6, layer_pattern=("mla",) * 6))
+    assert round(A.param_bytes(six) / 2**30, 2) == 39.58
+    assert repr(S.segments(six)) == repr(RS.segments(
+        dataclasses.replace(ref_configs.get_config("deepseek_v2_236b"),
+                            n_layers=6, layer_pattern=("mla",) * 6)))
 
 
 def test_qwen2_moe_full_size_numbers():
