@@ -136,6 +136,24 @@ order; any failure raises and exits non-zero:
       8192 frontend stub and the gates at 0 as initialised, then its
       float32 check at 10 layers with the gates at 0.5; each model freed
       before the next, the peak device memory of each step printed;
+   s. training: qwen2-moe reduced (4 MoE layers, float32, router
+      ``pallas``), 3 ``make_train_step`` steps with remat ``none`` and 3
+      with ``full`` on the card, each within rtol 1e-5 (losses) and 1e-4
+      (gradient norms) of the same steps on the host, the router kernels
+      launched once a MoE layer a forward (twice a step under ``full``);
+      qwen2-moe-a2.7b at its published widths, 4 of 24 layers, bfloat16,
+      its memory reckoned and printed before allocating: router parity at
+      step 0 (the three engines' expert indices equal, the loss bit for
+      bit, the gradient norms within 1e-6), ``launch.train.train()`` for 6
+      steps at batch 4 x seq 512 (losses finite; ms a step, tokens a
+      second, MFU over 989 T bf16 FLOP/s, peak memory), one step under the
+      profiler (device busy time, idle share, kernels by name), then 3
+      steps committing a checkpoint at step 3 and a ``train()`` that
+      restores it and runs steps 4-6 within rtol 1e-5 of the
+      uninterrupted losses; olmo-1b whole through ``launch.train.main``
+      (6 steps, batch 4 x seq 512, a checkpoint committed); the
+      reference's descent setting (olmo reduced, lr 1e-2, 20 steps on one
+      batch) losing more than 0.2;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -954,6 +972,445 @@ def phase_4r(card: str, zero_counts, counts) -> dict:
     peak(f"{LLAMA_ARCH} float32 check")
     out["launches"] = launched
     out["peaks_gib"] = peaks
+    return out
+
+
+# phase 4s: training on one card.  a: qwen2-moe reduced (4 MoE layers,
+# float32, the fused router), 3 steps on the card against the host's
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_STEPS, TRAIN_SMALL_SHAPE = 4, 3, (4, 16)
+# b: qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2_7b.py) at its published
+# widths, depth cut from 24 to 4 (see phase_4s), through train() at batch 4,
+# seq 512, remat none, router pallas, 6 steps, a checkpoint at step 3
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 512
+TRAIN_STEPS, TRAIN_CKPT = 6, 3
+TRAIN_PEAK_LIMIT_GIB = 70
+# d: the reference's descent setting (tests/test_substrate.py: olmo
+# reduced, lr 1e-2, warmup 1, no weight decay, 20 steps on one batch)
+DESCENT_STEPS, DESCENT_DROP = 20, 0.2
+
+
+def train_reckoning(cfg, batch: int, seq: int) -> dict:
+    """Device bytes of a training step, reckoned from the shapes before
+    anything is allocated: the state (params and grads in the param type,
+    float32 m and v), the saved activations of a layer (the attention's
+    float32 scores and softmax and bf16 probabilities, the MoE's
+    expert-major buffers and dispatch tensors, about 16 d-wide token
+    tensors, the shared experts), the float32 logits with their gradient
+    and softmax, the head's float32 weight gradient, and the update's
+    four float32 temporaries of its largest piece (adamw.PIECE_ELEMENTS,
+    or one layer of a leaf whose layer is larger)."""
+    from repro_torch.models import accounting, moe
+    from repro_torch.optim import adamw
+    from repro_torch import tree
+    n, pbytes = accounting.param_count(cfg), accounting.param_bytes(cfg)
+    state = 2 * pbytes + 8 * n
+    tokens = batch * seq
+    eb = cfg.dtype().itemsize
+    scores = batch * cfg.n_heads * seq * seq * (4 + 4 + eb)
+    per_layer = scores + tokens * cfg.d_model * eb * 16
+    if cfg.moe:
+        E, f = cfg.n_routed_experts, cfg.d_ff_expert
+        C = moe._capacity(seq, cfg.moe_top_k, E, cfg.moe_capacity_factor)
+        per_layer += E * batch * C * (2 * cfg.d_model + 3 * f) * eb
+        per_layer += 2 * batch * seq * E * C * eb
+        per_layer += tokens * 3 * cfg.n_shared_experts * f * eb
+    else:
+        per_layer += tokens * 3 * cfg.d_ff * eb
+    acts = per_layer * cfg.n_layers
+    head = 3 * tokens * cfg.vocab * 4 + cfg.d_model * cfg.vocab * 4
+    from repro_torch.models import stacked
+    leaves = [t for _, t in tree.flatten_with_path(
+        stacked.init_params(cfg, None, "meta"))]
+    piece = max(min(t.numel(), max(adamw.PIECE_ELEMENTS,
+                                   t.numel() // max(t.shape[0], 1)))
+                for t in leaves if t.dim())
+    update = 4 * 4 * piece
+    peak = state + max(acts + head, update)
+    return {"params": n, "param_bytes": pbytes, "state": state,
+            "activations": acts, "head": head, "update": update,
+            "peak": peak}
+
+
+def recorded_steps(fn):
+    """``fn()`` with train()'s straggler monitor recording each step's
+    seconds (the step's host clock, its batch, forward, backward and
+    update, and the loss read back).  Returns (fn's result, seconds)."""
+    from repro_torch.runtime import faults
+    real, seen = faults.StragglerMonitor, []
+
+    class Recording(real):
+        def observe(self, step_time_s):
+            seen.append(step_time_s)
+            return super().observe(step_time_s)
+
+    faults.StragglerMonitor = Recording
+    try:
+        return fn(), seen
+    finally:
+        faults.StragglerMonitor = real
+
+
+def profiled_step(step, params, state, x, y) -> dict:
+    """One train step under the profiler, its two halves (forward and
+    backward; the AdamW update) each in a session of its own: the device's
+    busy time (the union of kernel intervals), the span from the first
+    kernel's start to the last's end, the kernels launched and the
+    kernel time by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+
+    def measure(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = fn()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        expect(len(kernels) > 0, f"4s {tag}: the profiler saw no kernel")
+        busy, edge, by_name = 0.0, kernels[0][0], {}
+        for a, b, name in kernels:
+            busy += max(0.0, b - max(a, edge))
+            edge = max(edge, b)
+            by_name[name] = by_name.get(name, 0.0) + (b - a)
+        out[tag] = {"host_ms": host_ms, "busy_ms": busy / 1e3,
+                    "span_ms": (edge - kernels[0][0]) / 1e3,
+                    "kernels": len(kernels),
+                    "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+        return res
+
+    grads, loss, metrics = measure(
+        "forward+backward", lambda: step.grads(params, x, y))
+    measure("adamw", lambda: step.apply(params, state, grads, loss, metrics))
+    del grads
+    return out
+
+
+def phase_4s(card: str, zero_counts, counts) -> dict:
+    """Training on the card.  a: qwen2-moe reduced (4 MoE layers, float32,
+    the fused router), 3 train steps with remat none and 3 with remat full
+    on the card, each against the same steps on the host; b: qwen2-moe-
+    a2.7b at its published widths and 4 layers through train(): router
+    parity at step 0, 6 timed steps, one profiled, and the step-3
+    checkpoint's restore continuing to step 6; c: olmo-1b whole through
+    the CLI with a checkpoint; d: the descent check.  Returns the kernel
+    launches of the counted runs and the numbers."""
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import accounting, moe, stacked
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    launched = {"radix_topk": 0, "bitplane_pack": 0}
+    router = tuple(launched)
+    out = {}
+
+    def add(got):
+        for name in launched:
+            launched[name] += got[name]
+
+    # ---- a. the card against the host at a reduced size, float32
+    t0 = time.perf_counter()
+    small = dataclasses.replace(
+        configs.get_config(QWEN_ARCH).reduced(n_layers=TRAIN_SMALL_LAYERS),
+        router_impl="pallas")
+    moe_layers = sum(stacked.layer_sig(small, i).moe
+                     for i in range(small.n_layers))
+    ocfg = adamw.AdamWConfig()
+    shape = ShapeConfig("4s.a", TRAIN_SMALL_SHAPE[1], TRAIN_SMALL_SHAPE[0],
+                        "train")
+    p0 = stacked.init_params(small, torch.Generator().manual_seed(0), "cpu")
+    for remat in ("none", "full"):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            p = tree.map_with_path(lambda _, t: t.to(where, copy=True), p0)
+            s = adamw.init(p, ocfg)
+            step = steps.make_train_step(small, ocfg, remat=remat)
+            got = []
+            for i in range(TRAIN_SMALL_STEPS):
+                x, y = pipeline.host_batch(small, shape, i, device=where)
+                zero_counts()
+                p, s, m = step(p, s, x, y)
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                n = counts()
+                got.append((float(m["loss"]), float(m["grad_norm"]), n))
+            runs[where] = got
+        per_step = moe_layers * (2 if remat == "full" else 1)
+        for i, ((ld, gd, nd), (lh, gh, nh)) in enumerate(
+                zip(runs["cuda"], runs["cpu"])):
+            expect(all(nd[k] == per_step for k in router), f"4s.a remat "
+                   f"{remat} step {i}: router launches {nd}, not {per_step}")
+            expect(not any(nh.values()), f"4s.a host launched {nh}")
+            expect(abs(ld - lh) <= 1e-5 * abs(lh), f"4s.a remat {remat} step "
+                   f"{i}: loss {ld} on the card, {lh} on the host")
+            expect(abs(gd - gh) <= 1e-4 * abs(gh), f"4s.a remat {remat} step "
+                   f"{i}: grad norm {gd} on the card, {gh} on the host")
+            add(nd)
+        print(f"4s.a {small.name} ({moe_layers} MoE layers, float32, router "
+              f"pallas), remat {remat}, {TRAIN_SMALL_STEPS} steps at batch "
+              f"{TRAIN_SMALL_SHAPE}: losses card "
+              f"{[r[0] for r in runs['cuda']]} == host "
+              f"{[r[0] for r in runs['cpu']]} within rtol 1e-5, grad norms "
+              "within 1e-4; router kernels launched "
+              f"{per_step} times a step", flush=True)
+    out["a_s"] = time.perf_counter() - t0
+
+    # ---- b. qwen2-moe-a2.7b at its published widths, 4 of 24 layers
+    t0 = time.perf_counter()
+    full = configs.get_config(QWEN_ARCH)
+    expect(full.n_layers == QWEN_LAYERS and full.d_model == 2048
+           and full.n_routed_experts == 60 and full.moe_top_k == 4
+           and full.vocab == 151936, "4s.b: qwen2-moe config")
+    cfg = dataclasses.replace(cut(full, TRAIN_LAYERS), router_impl="pallas")
+    rk = train_reckoning(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    deeper = {n: train_reckoning(cut(full, n), TRAIN_BATCH, TRAIN_SEQ)
+              for n in range(TRAIN_LAYERS + 1, TRAIN_LAYERS + 5)}
+    print(f"4s.b {QWEN_ARCH} at {TRAIN_LAYERS} of {full.n_layers} layers, "
+          f"reckoned before allocating: {rk['params']} parameters, "
+          f"{rk['param_bytes'] / GIB:.2f} GiB of weights; state (params, "
+          f"grads, float32 m and v) {rk['state'] / GIB:.2f} GiB, activations "
+          f"{rk['activations'] / GIB:.2f}, logits and head gradient "
+          f"{rk['head'] / GIB:.2f}, update temporaries "
+          f"{rk['update'] / GIB:.2f}: peak {rk['peak'] / GIB:.2f} GiB; "
+          "deeper: " + ", ".join(
+              f"{n} layers state {r['state'] / GIB:.1f} / peak "
+              f"{r['peak'] / GIB:.1f} GiB / checkpoint "
+              f"{12 * r['params'] / 1e9:.1f} GB" for n, r in deeper.items())
+          + f"; this cut's checkpoint {12 * rk['params'] / 1e9:.1f} GB",
+          flush=True)
+    expect(rk["peak"] < TRAIN_PEAK_LIMIT_GIB * GIB, "4s.b: reckoned peak "
+           f"{rk['peak'] / GIB:.2f} GiB over {TRAIN_PEAK_LIMIT_GIB}")
+    tshape = ShapeConfig("4s.b", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ocfg = adamw.AdamWConfig()
+
+    # router parity at step 0: the three engines on one set of weights
+    torch.cuda.reset_peak_memory_stats()
+    params = stacked.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    x, y = pipeline.host_batch(cfg, tshape, 0, device=dev)
+    real_route = moe.route_topk
+    par = {}
+    for impl in ("pallas", "radix", "lax"):
+        picks = []
+
+        def route(logits, k, name, picks=picks):
+            gates, idx = real_route(logits, k, name)
+            picks.append(idx)
+            return gates, idx
+
+        c = dataclasses.replace(cfg, router_impl=impl)
+        moe.route_topk = route
+        zero_counts()
+        try:
+            g, loss, _ = steps.make_train_step(c, ocfg, remat="none").grads(
+                params, x, y)
+            gnorm = float(adamw.global_norm(g))
+        finally:
+            moe.route_topk = real_route
+        torch.cuda.synchronize()
+        got = counts()
+        del g
+        if impl == "pallas":
+            expect(all(got[k] == TRAIN_LAYERS for k in router), f"4s.b "
+                   f"parity: fused-topk launched {got}")
+            add(got)
+        else:
+            expect(not any(got.values()), f"4s.b parity {impl}: {got}")
+        par[impl] = (loss, gnorm, picks)
+    loss0, gnorm0, picks0 = par["pallas"]
+    for impl in ("radix", "lax"):
+        loss, gnorm, picks = par[impl]
+        expect(len(picks) == len(picks0) == TRAIN_LAYERS and all(
+            torch.equal(a, b) for a, b in zip(picks, picks0)),
+            f"4s.b parity: {impl}'s expert indices != fused-topk's")
+        expect(torch.equal(loss, loss0), f"4s.b parity: {impl}'s loss "
+               f"{float(loss)} != fused-topk's {float(loss0)}")
+        expect(abs(gnorm - gnorm0) <= 1e-6 * gnorm0, f"4s.b parity: "
+               f"{impl}'s grad norm {gnorm} vs {gnorm0}")
+    print(f"4s.b router parity at step 0 (batch {TRAIN_BATCH}, seq "
+          f"{TRAIN_SEQ}, forward and backward): expert indices of radix and "
+          f"lax (torch) == pallas (fused-topk), loss bit for bit "
+          f"({float(loss0)!r}), grad norms {[par[k][1] for k in par]} within "
+          f"1e-6", flush=True)
+    del params, par, picks0, loss0
+    torch.cuda.empty_cache()
+
+    # 6 uninterrupted steps through train(), timed; then one step profiled
+    run = trainer.TrainRun(cfg=cfg, shape=tshape, ocfg=ocfg, remat="none")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    (params, state, hist), secs = recorded_steps(
+        lambda: trainer.train(run, TRAIN_STEPS, log_every=1))
+    torch.cuda.synchronize()
+    got = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / GIB
+    expect(all(got[k] == TRAIN_LAYERS * TRAIN_STEPS for k in router),
+           f"4s.b train(): router launches {got}, not {TRAIN_LAYERS} x "
+           f"{TRAIN_STEPS}")
+    expect(len(hist) == TRAIN_STEPS and all(np.isfinite(hist)),
+           f"4s.b train(): losses {hist}")
+    add(got)
+    step_ms = statistics.median(secs[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = accounting.model_flops(cfg, tshape)
+    mfu = flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S
+    x, y = pipeline.host_batch(cfg, tshape, TRAIN_STEPS, device=dev)
+    zero_counts()
+    prof = profiled_step(steps.make_train_step(cfg, ocfg, remat="none"),
+                         params, state, x, y)
+    add(counts())
+    fb, up = prof["forward+backward"], prof["adamw"]
+    busy = fb["busy_ms"] + up["busy_ms"]
+    span = fb["span_ms"] + up["span_ms"]
+    out["b"] = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                "mfu": mfu, "peak_gib": peak_gib, "busy_ms": busy,
+                "idle_share": 1 - busy / span, "profile": prof,
+                "kernels_per_step": fb["kernels"] + up["kernels"],
+                "router_launches_per_step": TRAIN_LAYERS, "losses": hist}
+    print(f"[{card}] 4s.b train() {cfg.name} at {TRAIN_LAYERS} layers, bf16, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat none, router pallas: "
+          f"losses {hist}; step times {[round(t * 1e3, 2) for t in secs]} ms "
+          f"(host clock), median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; model_flops {flops:.4e} "
+          f"-> MFU {mfu:.4f} of {BF16_FLOPS_PER_S:.0e}; peak device memory "
+          f"{peak_gib:.2f} GiB (reckoned {rk['peak'] / GIB:.2f}); router "
+          f"launches {got}", flush=True)
+    for tag, r in prof.items():
+        print(f"[{card}] 4s.b profiled step, {tag}: host {r['host_ms']:.2f} "
+              f"ms, device busy {r['busy_ms']:.2f} ms over a span of "
+              f"{r['span_ms']:.2f} ms (idle share "
+              f"{1 - r['busy_ms'] / r['span_ms']:.3f}), {r['kernels']} "
+              "kernels; by name: " + "; ".join(
+                  f"{name[:70]} {us / 1e3:.3f} ms" for name, us in r["top"]),
+              flush=True)
+    print(f"[{card}] 4s.b a step: device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / span:.3f}, {fb['kernels'] + up['kernels']} kernels "
+          f"({TRAIN_LAYERS} of each router kernel)", flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # the step-3 checkpoint: 3 steps committing step 3, then a train()
+    # that restores it and runs steps 4-6 (it drops step 3 once read, so
+    # the disk holds one full-state checkpoint at a time)
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_4s_")
+    try:
+        crun = dataclasses.replace(run, ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT)
+        zero_counts()
+        t1 = time.perf_counter()
+        _, _, head = trainer.train(crun, TRAIN_CKPT, log_every=100)
+        save_s = time.perf_counter() - t1
+        mgr = CheckpointManager(ckpt)
+        expect(mgr.all_steps() == [TRAIN_CKPT], f"4s.b: checkpoints "
+               f"{mgr.all_steps()}")
+        ck_bytes = sum(f.stat().st_size for f in
+                       Path(ckpt, f"step_{TRAIN_CKPT:09d}").iterdir())
+        torch.cuda.empty_cache()
+        resumed = {}
+
+        def drop_restored(step, metrics):
+            if not resumed:
+                resumed["s"] = time.perf_counter() - t1
+                shutil.rmtree(Path(ckpt, f"step_{TRAIN_CKPT:09d}"))
+
+        t1 = time.perf_counter()
+        _, state, tail = trainer.train(crun, TRAIN_STEPS - TRAIN_CKPT,
+                                       log_every=100, on_step=drop_restored)
+        total_s = time.perf_counter() - t1
+        add(counts())
+        expect(int(state.count) == TRAIN_STEPS, f"4s.b resume: count "
+               f"{int(state.count)}")
+        expect(mgr.all_steps() == [TRAIN_STEPS], f"4s.b resume: "
+               f"checkpoints {mgr.all_steps()}")
+        del state
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(head + tail, hist))
+    expect(gap <= 1e-5, f"4s.b resume: losses {head} + {tail} vs "
+           f"uninterrupted {hist}, relative gap {gap}")
+    out["b"].update({"ckpt_gb": ck_bytes / 1e9, "save_s": save_s,
+                     "restore_s": resumed["s"], "resume_total_s": total_s,
+                     "resume_gap": gap})
+    print(f"[{card}] 4s.b checkpoint at step {TRAIN_CKPT} "
+          f"({ck_bytes / 1e9:.2f} GB on disk: float32 params, m and v): "
+          f"train({TRAIN_CKPT} steps) with the commit {save_s:.1f} s; the "
+          f"restore and the first resumed step {resumed['s']:.1f} s; steps "
+          f"4-{TRAIN_STEPS} with step {TRAIN_STEPS}'s commit {total_s:.1f} s; "
+          f"losses {head} + resumed {tail} vs uninterrupted {hist}: "
+          + ("bit for bit" if head + tail == hist
+             else f"relative gap {gap:.3e}")
+          + f"; phase 4s.b {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- c. olmo-1b whole, through the CLI
+    t0 = time.perf_counter()
+    ocfg_olmo = configs.get_config("olmo_1b")
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_4s_olmo_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        hist, secs = recorded_steps(lambda: trainer.main([
+            "--arch", "olmo_1b", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckpt]))
+        got = counts()
+        peak_gib = torch.cuda.max_memory_allocated() / GIB
+        committed = CheckpointManager(ckpt).latest_step()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    expect(not any(got.values()), f"4s.c olmo-1b: launched kernels {got}")
+    expect(len(hist) == TRAIN_STEPS and all(np.isfinite(hist)),
+           f"4s.c olmo-1b: losses {hist}")
+    expect(committed == TRAIN_STEPS, f"4s.c olmo-1b: committed {committed}")
+    step_ms = statistics.median(secs[1:]) * 1e3
+    oshape = ShapeConfig("4s.c", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mfu = accounting.model_flops(ocfg_olmo, oshape) / (step_ms * 1e-3) \
+        / BF16_FLOPS_PER_S
+    out["c"] = {"step_ms": step_ms, "mfu": mfu, "peak_gib": peak_gib,
+                "tokens_per_s": tokens / step_ms * 1e3, "losses": hist}
+    print(f"[{card}] 4s.c launch.train.main --arch olmo_1b --steps "
+          f"{TRAIN_STEPS} --batch {TRAIN_BATCH} --seq {TRAIN_SEQ} --ckpt-dir "
+          f"<tmp> ({accounting.param_count(ocfg_olmo)} parameters, "
+          f"{accounting.param_bytes(ocfg_olmo) / GIB:.2f} GiB, uncut): losses "
+          f"{hist}, all finite; step {TRAIN_STEPS} committed; step times "
+          f"{[round(t * 1e3, 2) for t in secs]} ms, median of steps "
+          f"2-{TRAIN_STEPS} {step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} "
+          f"tokens/s, MFU {mfu:.4f}; peak device memory {peak_gib:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s with init and the checkpoint",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- d. the descent check on the card
+    dcfg = configs.get_config("olmo_1b").reduced()
+    docfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, weight_decay=0.0)
+    dstep = steps.make_train_step(dcfg, docfg, remat="none")
+    p = stacked.init_params(dcfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    s = adamw.init(p, docfg)
+    x, y = pipeline.host_batch(dcfg, ShapeConfig("4s.d", 32, 8, "train"), 0,
+                               device=dev)
+    losses = []
+    for _ in range(DESCENT_STEPS):
+        p, s, m = dstep(p, s, x, y)
+        losses.append(float(m["loss"]))
+    expect(losses[-1] < losses[0] - DESCENT_DROP, f"4s.d: losses "
+           f"{losses[::5]} do not drop by {DESCENT_DROP}")
+    print(f"4s.d descent ({dcfg.name}, lr 1e-2, warmup 1, no weight decay, "
+          f"{DESCENT_STEPS} steps on one batch of 8 x 32): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    out["launches"] = launched
     return out
 
 
@@ -1983,6 +2440,17 @@ def main() -> int:
           f"counted runs {serve_r['launches']}; peak device memory a step "
           + ", ".join(f"{k} {v:.2f} GiB"
                       for k, v in serve_r["peaks_gib"].items()), flush=True)
+
+    # ---- 4s. training on one card: the card against the host at a reduced
+    # size, qwen2-moe-a2.7b at its published widths (4 layers) through
+    # train() with router parity and a checkpoint's resume, olmo-1b whole
+    # through the CLI, the descent check
+    t0 = time.perf_counter()
+    train_s = phase_4s(card, zero_counts, counts)
+    for name, n in train_s["launches"].items():
+        slice_launches[name] += n
+    print(f"phase 4s: {time.perf_counter() - t0:.1f} s; launches of the "
+          f"counted runs {train_s['launches']}", flush=True)
 
     # ---- 5. times
     B, W, N = planes.shape

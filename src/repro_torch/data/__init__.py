@@ -1,2 +1,2 @@
-"""Model inputs of the port (the counterpart of ``repro.data``): the VLM
-and audio frontend stub."""
+"""Model inputs of the port (the counterpart of ``repro.data``): the
+synthetic token stream and the VLM / audio frontend stub."""

@@ -1,18 +1,63 @@
-"""Model inputs: the port of ``repro.data.pipeline``'s frontend stub.
+"""Model inputs: the port of ``repro.data.pipeline`` on one device.
 
-The VLM and audio frontends are stubs: their archs take precomputed
-patch / frame embeddings, drawn here from a fixed seed as the reference
-draws them.  The training inputs (``TokenSource``, ``host_batch``,
-``sharded_batch``) come with the training slice (``ROADMAP.md``, A12c).
+``TokenSource`` is the deterministic synthetic token stream, drawn with
+numpy per (seed, step, row) exactly as the reference draws it, so both
+packages train on the same batches and a restarted job replays identical
+data.  ``host_batch`` carries a batch onto a device.  The VLM and audio
+frontends are stubs: their archs take precomputed patch / frame
+embeddings, drawn here from a fixed seed as the reference draws them.
+The batch sharded over a mesh (``sharded_batch``) comes with the
+multi-chip launch layer (``ROADMAP.md``, A12d).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.config import ArchConfig
+from repro_torch.kernels import backend
+from repro_torch.models.config import ArchConfig, ShapeConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenSource:
+    """Markov-ish synthetic token stream with a learnable signal (the next
+    token depends on the previous one), deterministic in (seed, step,
+    row)."""
+    vocab: int
+    seed: int = 0
+
+    def batch(self, step: int, start: int, count: int, seq_len: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Rows [start, start+count) of the global batch for ``step``:
+        (tokens, labels), int32 (count, seq_len) each."""
+        toks = np.empty((count, seq_len + 1), dtype=np.int32)
+        for i in range(count):
+            rng = np.random.default_rng(
+                (self.seed * 1_000_003 + step) * 131_071 + start + i)
+            seq = rng.integers(0, self.vocab, seq_len + 1).astype(np.int32)
+            # inject structure: token_{t+1} correlates with token_t
+            mask = rng.random(seq_len) < 0.5
+            nxt = (seq[:-1] * 31 + 7) % self.vocab
+            seq[1:][mask] = nxt[mask]
+            toks[i] = seq
+        return toks[:, :-1], toks[:, 1:]
+
+
+def host_batch(cfg: ArchConfig, shape: ShapeConfig, step: int,
+               batch: Optional[int] = None, seq: Optional[int] = None,
+               seed: int = 0, device=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole batch of ``step`` drawn on the host: (tokens, labels) as
+    int32 tensors on ``device`` (None: the card)."""
+    dev = backend.resolve_device(device)
+    src = TokenSource(cfg.vocab, seed)
+    x, y = src.batch(step, 0, batch or shape.global_batch,
+                     seq or shape.seq_len)
+    return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(y)).to(dev))
 
 
 def frontend_stub(cfg: ArchConfig, batch: int, device,

@@ -46,24 +46,63 @@ def _ones(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.ones((n,), dtype=dtype, device=device)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cuBLAS's product of two 2-D or two 3-D (batched) operands of one
+    narrow type with a float32 output: float32 sums, never rounded."""
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_mm_f32` with a backward (``aten::mm.dtype`` has none).
+
+    The reference's transpose of ``einsum(..., preferred_element_type=
+    float32)`` is the same product of the float32 cotangent with the other
+    operand, float32 out, then cast to the operand's own type.  At the
+    reference's DEFAULT precision a float32 operand enters the MXU of its
+    TPU as bfloat16, so each backward product here takes the cotangent
+    rounded to the operands' type and the other operand as it lies, sums in
+    float32 (:func:`_mm_f32`) and rounds once to the operand's type.
+    Neither operand is ever widened: at qwen2-moe's head a float32 copy of
+    the (2048, 151936) weights would be 1.16 GiB a step."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_f32(g, b.transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _mm_f32(a.transpose(-1, -2), g).to(b.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (a: (..., M, K), b: (K, N) or batched like a) as float32,
     the sums kept in float32 and never rounded to the operands' type: the
     reference's ``preferred_element_type=jnp.float32``.  Float32 operands
     take a plain product.  bfloat16 / float16 operands on the card take
-    cuBLAS's product with a float32 output (``torch.mm`` / ``torch.bmm``
-    with ``out_dtype``), so the weights are never widened; on the host they
-    are widened (a product of two bfloat16 values is exact in float32)."""
+    cuBLAS's product with a float32 output (:class:`_MatmulF32`, whose
+    backward keeps each gradient in its operand's type), so the weights are
+    never widened; on the host they are widened (a product of two bfloat16
+    values is exact in float32), and autograd differentiates the widened
+    product as the reference's CPU run does."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.device.type != "cuda":
         return a.float() @ b.float()
     if b.dim() == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(a.shape[:-1] + (b.shape[-1],))
     lead = a.shape[:-2]
-    out = torch.bmm(a.reshape((-1,) + a.shape[-2:]),
-                    b.reshape((-1,) + b.shape[-2:]), out_dtype=torch.float32)
+    out = _MatmulF32.apply(a.reshape((-1,) + a.shape[-2:]),
+                           b.reshape((-1,) + b.shape[-2:]))
     return out.reshape(lead + out.shape[-2:])
 
 

@@ -4,12 +4,23 @@
 Identical consecutive layers hold their parameters STACKED along a
 leading axis (the reference's layout, leaf for leaf, so its weights carry
 across with ``tree.params_from_numpy``).  Where the reference scans a run
-under ``lax.scan``, the port loops over the leading axis in Python on
-views ``leaf[i]``: nothing is copied, and a cache written through a view
-lands in the stacked cache.  A periodic pattern (a fusion layer every few
-layers, zamba2's shared block) stacks each of its inner runs over
-``(reps,)`` for a run of one layer and ``(reps, count)`` otherwise; the
-port loops over the repetitions, then over the inner runs.
+under ``lax.scan``, the port loops over the leading axis in Python.  The
+layers' parameters are taken with one ``unbind(0)`` a leaf: views, nothing
+copied, and under autograd the backward of a leaf's layers is one
+``stack`` (indexing ``leaf[i]`` would add each layer's gradient into a
+zero tensor as large as the whole leaf, L whole-leaf writes a step).  A
+cache is indexed, so that a view written in place lands in the stacked
+cache.  A periodic pattern (a fusion layer every few layers, zamba2's
+shared block) stacks each of its inner runs over ``(reps,)`` for a run of
+one layer and ``(reps, count)`` otherwise; the port loops over the
+repetitions, then over the inner runs.
+
+Gradient checkpointing (``remat``) wraps what the reference's scan body
+holds: a layer of a run of several, a repetition of a periodic pattern.
+``"full"`` saves nothing (``torch.utils.checkpoint``, non-reentrant),
+``"dots"`` saves the outputs of the products without batch dimensions
+(``aten.mm`` and its kind, as ``dots_with_no_batch_dims_saveable``) and
+recomputes the rest.
 
 Layer grouping:
 
@@ -22,6 +33,7 @@ Layer grouping:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -94,6 +106,41 @@ def _lead(run: Run, reps: int = 0) -> Tuple[int, ...]:
 def _index(t, i):
     """The i-th slice of every leaf of a stacked tree: views, no copies."""
     return tree.map_with_path(lambda _, leaf: leaf[i], t)
+
+
+def _unstack(t, n: int) -> List:
+    """The n slices of a stacked tree along its leading axis, one
+    ``unbind`` a leaf (views; under autograd, one ``stack`` a leaf)."""
+    parts = {path: leaf.unbind(0) for path, leaf in tree.flatten_with_path(t)}
+    return [tree.map_with_path(lambda path, _: parts[path][i], t)
+            for i in range(n)]
+
+
+# the products whose outputs ``remat="dots"`` keeps: no batch dimension
+_DOTS = ("mm", "addmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = getattr(getattr(op, "overloadpacket", op), "__name__", "")
+    return (CheckpointPolicy.MUST_SAVE if name in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` under gradient checkpointing: ``none`` as is, ``full`` saving
+    nothing, ``dots`` saving the batch-free products' outputs."""
+    if mode == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if mode == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _dots_policy)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=context)
+    if mode == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"unknown remat {mode!r}; expected none, full or dots")
 
 
 # ---------------------------------------------------------------------------
@@ -196,28 +243,35 @@ def from_layerwise(cfg: ArchConfig, lw: Dict) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def _run(shared, run: Run, blk, cfg, x, aux, positions, frontend, cache):
-    """A run of layers, one at a time over the leading axis when stacked;
-    caches are written in place."""
+def _run(shared, run: Run, blk, cfg, x, aux, positions, frontend, cache,
+         remat: str = "none"):
+    """A run of layers, one at a time over the leading axis when stacked,
+    each layer checkpointed under ``remat``; caches are written in place."""
     if run.count == 1:
         x, _, a = T.apply_block(shared, blk, run.sig.kind, cfg, x,
                                 positions, frontend, cache)
         return x, aux + a
-    for i in range(run.count):
-        x, _, a = T.apply_block(shared, _index(blk, i), run.sig.kind, cfg, x,
-                                positions, frontend,
-                                None if cache is None else _index(cache, i))
-        aux = aux + a
+
+    def body(x, aux, layer, c):
+        x, _, a = T.apply_block(shared, layer, run.sig.kind, cfg, x,
+                                positions, frontend, c)
+        return x, aux + a
+
+    body = _remat(body, remat)
+    for i, layer in enumerate(_unstack(blk, run.count)):
+        x, aux = body(x, aux, layer,
+                      None if cache is None else _index(cache, i))
     return x, aux
 
 
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             frontend: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            caches: Optional[List] = None):
+            caches: Optional[List] = None, remat: str = "none"):
     """tokens: (B, T) int; frontend: (B, F, frontend_dim) embeddings for
     the fusion layers, or None.  Returns (logits (B,T,V) float32, caches,
-    aux); given caches are written in place and returned."""
+    aux); given caches are written in place and returned.  ``remat``
+    (none | full | dots) checkpoints the layers for training."""
     B, Tn = tokens.shape
     if positions is None:
         positions = torch.arange(Tn, dtype=torch.int32,
@@ -229,16 +283,32 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
         cache = caches[si] if caches is not None else None
         if isinstance(seg, Run):
             x, aux = _run(shared, seg, sp, cfg, x, aux, positions, frontend,
-                          cache)
+                          cache, remat)
             continue
-        for r in range(seg.reps):
+
+        def rep_body(x, aux, inner, c, seg=seg):
             for j, run in enumerate(seg.inner):
-                x, aux = _run(shared, run, _index(sp["inner"][j], r), cfg, x,
-                              aux, positions, frontend,
+                x, aux = _run(shared, run, inner[j], cfg, x, aux, positions,
+                              frontend, None if c is None else c[j])
+            return x, aux
+
+        rep_body = _remat(rep_body, remat)
+        reps = zip(*(_unstack(p, seg.reps) for p in sp["inner"]))
+        for r, inner in enumerate(reps):
+            x, aux = rep_body(x, aux, list(inner),
                               None if cache is None
-                              else _index(cache[j], r))
+                              else [_index(c, r) for c in cache])
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], x), caches, aux
+
+
+def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, frontend: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01, remat: str = "none"):
+    """Next-token cross entropy plus ``aux_weight`` times the routers'
+    load-balance loss: (loss, {"nll", "aux"}), all float32 scalars."""
+    logits, _, aux = forward(params, cfg, tokens, frontend, remat=remat)
+    return T.nll_loss(logits, labels, aux, aux_weight)
 
 
 # ---------------------------------------------------------------------------

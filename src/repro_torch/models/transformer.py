@@ -155,6 +155,26 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     return L.lm_logits(params["embed"], x), caches, aux_total
 
 
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
+             aux_weight: float):
+    """(nll + aux_weight * aux, {"nll", "aux"}): the mean over tokens of
+    logsumexp minus the gold logit, in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, frontend: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01):
+    """Next-token cross entropy plus ``aux_weight`` times the routers'
+    load-balance loss: (loss, {"nll", "aux"}), all float32 scalars."""
+    logits, _, aux = forward(params, cfg, tokens, frontend)
+    return nll_loss(logits, labels, aux, aux_weight)
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """Nested parameter trees (dicts, lists and tuples of tensors): paths,
 their printed names, and the carry of numpy weights onto a device.
 
-A path is a tuple of keys, a ``str`` for a dict entry and an ``int`` for a
-list or tuple entry.  Dicts are walked in sorted key order and sequences in
-index order, so leaves come out in the order ``jax.tree_util`` flattens the
-same tree, and :func:`keystr` prints a path as
-``jax.tree_util.keystr`` does, e.g. ``['segments'][0]['mlp']['wi']``.
+A path is a tuple of keys: a ``str`` for a dict entry, an ``int`` for a
+list or tuple entry and an :class:`Attr` for a field of a named tuple (an
+optimizer state).  Dicts are walked in sorted key order, sequences in index
+order and named tuples in field order; ``None`` is an empty subtree, no
+leaf.  So leaves come out in the order ``jax.tree_util`` flattens the same
+tree, and :func:`keystr` prints a path as ``jax.tree_util.keystr`` does,
+e.g. ``['segments'][0]['mlp']['wi']`` or ``[1].m['embed']['tok']``.
 """
 from __future__ import annotations
 
@@ -17,10 +19,23 @@ import torch
 Path = Tuple[Any, ...]
 
 
+class Attr(str):
+    """A path key naming a field of a named tuple, printed ``.name``."""
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _collect(node, path: Path, out: List[Tuple[Path, Any]]) -> None:
+    if node is None:
+        return
     if isinstance(node, dict):
         for key in sorted(node):
             _collect(node[key], path + (key,), out)
+    elif _is_namedtuple(node):
+        for name in node._fields:
+            _collect(getattr(node, name), path + (Attr(name),), out)
     elif isinstance(node, (list, tuple)):
         for i, child in enumerate(node):
             _collect(child, path + (i,), out)
@@ -30,7 +45,7 @@ def _collect(node, path: Path, out: List[Tuple[Path, Any]]) -> None:
 
 def flatten_with_path(tree) -> List[Tuple[Path, Any]]:
     """(path, leaf) for every leaf of ``tree``; anything that is not a
-    dict, list or tuple is a leaf.  (A module-level walk: a nested one that
+    dict, list, tuple or None is a leaf.  (A module-level walk: a nested one that
     closed over the list would form a reference cycle, and the leaves
     would live on until the cycle collector ran.)"""
     out: List[Tuple[Path, Any]] = []
@@ -45,8 +60,13 @@ def map_with_path(fn: Callable[[Path, Any], Any], tree):
 
 
 def _map(fn, node, path: Path):
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {key: _map(fn, node[key], path + (key,)) for key in node}
+    if _is_namedtuple(node):
+        return type(node)(*(_map(fn, getattr(node, name), path + (Attr(name),))
+                            for name in node._fields))
     if isinstance(node, (list, tuple)):
         return type(node)(_map(fn, child, path + (i,))
                           for i, child in enumerate(node))
@@ -55,8 +75,9 @@ def _map(fn, node, path: Path):
 
 def keystr(path: Path) -> str:
     """The path's printed name: ``[repr(key)]`` for a dict key, ``[i]``
-    for a sequence index."""
-    return "".join(f"[{k}]" if isinstance(k, int) else f"[{k!r}]"
+    for a sequence index, ``.name`` for a named tuple's field."""
+    return "".join(f".{k}" if isinstance(k, Attr)
+                   else f"[{k}]" if isinstance(k, int) else f"[{k!r}]"
                    for k in path)
 
 

@@ -505,3 +505,106 @@ def test_deepseek_v2_serves_through_the_router_kernels_on_card(cuda_device):
         (moe_layers * forwards,) * 2
     assert res["tokens"].shape == (2, 9)
     assert ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all()
+
+
+def _rel_err(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["attention", "mla-absorbed", "head"])
+def test_matmul_f32_backward_on_card(cuda_device, site):
+    # the float32-output product of bfloat16 operands (attention scores,
+    # MLA's absorbed latent scores, the LM head) differentiated on the
+    # card: every gradient in its operand's type, within 2e-2 (relative
+    # norm) of the host's, which widens both operands; the forward
+    # unchanged by the backward's wrapper (bit for bit the plain product)
+    import dataclasses
+    from repro_torch import configs, tree
+    from repro_torch.models import layers as L
+    arch = "deepseek_v2_236b" if site == "mla-absorbed" else "qwen2_moe_a2_7b"
+    cfg = dataclasses.replace(configs.get_config(arch).reduced(n_layers=2),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(5)
+    B, T = 2, 6
+    x = torch.randn(B, T, cfg.d_model, generator=gen).to(torch.bfloat16)
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T)
+    if site == "head":
+        params = L.init_embed(cfg, gen, torch.device("cpu"))
+    elif site == "attention":
+        params = L.init_attn(cfg, gen, torch.device("cpu"))
+    else:
+        params = L.init_mla(cfg, gen, torch.device("cpu"))
+
+    def run(dev):
+        p = tree.map_with_path(
+            lambda _, t: t.to(dev).detach().requires_grad_(True), params)
+        xi = x.to(dev).requires_grad_(True)
+        if site == "head":
+            out = L.lm_logits(p, xi)
+        elif site == "attention":
+            out, _ = L.apply_attn(p, xi, cfg, pos.to(dev))
+        else:
+            cache = L.init_mla_cache(cfg, B, T + 2, dev)
+            out, _ = L.apply_mla(p, xi, cfg, pos.to(dev), cache)
+        flat = [xi] + [t for _, t in tree.flatten_with_path(p)]
+        gs = torch.autograd.grad(out.float().square().mean(), flat,
+                                 allow_unused=True)
+        return out.detach(), [(t, g) for t, g in zip(flat, gs)]
+
+    out_d, gd = run(cuda_device)
+    out_h, gh = run("cpu")
+    assert _rel_err(out_d.cpu(), out_h) < 2e-2
+    used = 0
+    for (t, a), (_, b) in zip(gd, gh):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        used += 1
+        assert a.dtype == t.dtype == b.dtype
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a.cpu(), b) < 2e-2
+    assert used >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_moe_train_step_on_card_matches_host(cuda_device, remat):
+    # qwen2-moe reduced (4 MoE layers), float32, the fused router: 3 train
+    # steps on the card == the host's within rtol 1e-5 (losses) and 1e-4
+    # (gradient norms); the router kernels launch once a MoE layer a
+    # forward, twice under remat "full" (the recompute)
+    import dataclasses
+    from repro_torch import configs, tree
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import steps
+    from repro_torch.models import stacked as S
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw as A
+    cfg = dataclasses.replace(
+        configs.get_config("qwen2_moe_a2_7b").reduced(n_layers=4),
+        router_impl="pallas")
+    ocfg = A.AdamWConfig()
+    shape = ShapeConfig("t", 16, 4, "train")
+    p0 = S.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = tree.map_with_path(lambda _, t: t.to(dev, copy=True), p0)
+        s = A.init(p, ocfg)
+        step = steps.make_train_step(cfg, ocfg, remat=remat)
+        out = []
+        for i in range(3):
+            x, y = P.host_batch(cfg, shape, i, device=dev)
+            before = (radix_topk.LAUNCHES, bitplane_pack.LAUNCHES)
+            p, s, m = step(p, s, x, y)
+            launched = (radix_topk.LAUNCHES - before[0],
+                        bitplane_pack.LAUNCHES - before[1])
+            out.append((float(m["loss"]), float(m["grad_norm"]), launched))
+        runs[dev.type] = out
+    per_step = cfg.n_layers * (2 if remat == "full" else 1)
+    for (ld, gd, nd), (lh, gh, nh) in zip(runs["cuda"], runs["cpu"]):
+        assert nd == (per_step, per_step) and nh == (0, 0)
+        assert abs(ld - lh) <= 1e-5 * abs(lh)
+        assert abs(gd - gh) <= 1e-4 * abs(gh)
