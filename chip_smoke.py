@@ -154,6 +154,16 @@ order; any failure raises and exits non-zero:
       (6 steps, batch 4 x seq 512, a checkpoint committed); the
       reference's descent setting (olmo reduced, lr 1e-2, 20 steps on one
       batch) losing more than 0.2;
+   t. sharded execution on a world of one: a NCCL group of one rank in
+      this process and ``make_host_mesh()``'s (1, 1) mesh; 4s.b's model
+      (qwen2-moe-a2.7b at its published widths, 4 layers, batch 4 x
+      512, seed 0) through ``train(run, 3, mesh=mesh)`` against the
+      one-card ``train(run, 3)``: every loss and every parameter leaf
+      bit for bit, the router kernels launched 4 times a step; then a
+      prefill of 16 tokens and 8 teacher-forced decode steps under the
+      mesh (params and caches placed by the reference's specs) against
+      the unsharded steps, logits bit for bit; ms a step, tokens a
+      second, peak memory;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -1414,6 +1424,171 @@ def phase_4s(card: str, zero_counts, counts) -> dict:
     return out
 
 
+# phase 4t: sharded execution at world 1: 4s.b's model, batch and seed
+# through train(mesh=...) for 3 steps, then a prefill of 16 and 8 decode
+# steps under the mesh, each against the unsharded path in this process
+SHARD_STEPS, SHARD_PROMPT, SHARD_DECODE = 3, 16, 8
+
+
+def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
+    """Sharded execution on a world of one: a NCCL group of one rank in
+    this process, the (1, 1) mesh of ``make_host_mesh()``.  qwen2-moe-
+    a2.7b at its published widths and 4 layers: ``train(run, 3,
+    mesh=mesh)`` from 4s.b's seed against the one-card ``train(run, 3)``
+    (every loss and every parameter leaf bit for bit), then a prefill and
+    8 teacher-forced decode steps under the mesh against the unsharded
+    steps (logits bit for bit).  ``losses_4s``: 4s.b's uninterrupted
+    losses, printed beside the one-card run's.  Returns the router
+    launches of the counted runs and the numbers."""
+    import statistics
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, tree
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import stacked
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda", 0)
+    router = ("radix_topk", "bitplane_pack")
+    launched = dict.fromkeys(router, 0)
+    cfg = dataclasses.replace(cut(configs.get_config(QWEN_ARCH), TRAIN_LAYERS),
+                              router_impl="pallas")
+    tshape = ShapeConfig("4t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    run = trainer.TrainRun(cfg=cfg, shape=tshape, ocfg=adamw.AdamWConfig(),
+                           remat="none")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        expect(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+               f"4t: mesh {mesh}")
+
+        # the one-card train() of 4s.b, then the same under the mesh
+        zero_counts()
+        params, state, want = trainer.train(run, SHARD_STEPS, log_every=100)
+        del state
+        torch.cuda.synchronize()
+        expect(all(counts()[k] == TRAIN_LAYERS * SHARD_STEPS for k in router),
+               f"4t one-card train(): router launches {counts()}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        (sp, ss, got), secs = recorded_steps(lambda: trainer.train(
+            run, SHARD_STEPS, mesh=mesh, log_every=1))
+        torch.cuda.synchronize()
+        n = counts()
+        peak_gib = torch.cuda.max_memory_allocated() / GIB
+        expect(all(n[k] == TRAIN_LAYERS * SHARD_STEPS for k in router),
+               f"4t train(mesh): router launches {n}, not {TRAIN_LAYERS} x "
+               f"{SHARD_STEPS}")
+        for k in router:
+            launched[k] += n[k]
+        expect(got == want, f"4t train(mesh): losses {got} != one-card "
+               f"{want}")
+        print(f"4t one-card train() losses {want} "
+              + ("==" if want == losses_4s[:SHARD_STEPS] else "!=")
+              + f" 4s.b's first {SHARD_STEPS} {losses_4s[:SHARD_STEPS]}",
+              flush=True)
+        unequal = [tree.keystr(path) for path, t in
+                   tree.flatten_with_path(sp) if not torch.equal(
+                       t.full_tensor(), tree.at(params, path))]
+        expect(not unequal, f"4t train(mesh): parameters differ from the "
+               f"one-card run's: {unequal[:4]}")
+        expect(int(ss.count.full_tensor()) == SHARD_STEPS, "4t: count")
+        del sp, ss
+        torch.cuda.empty_cache()
+        step_ms = statistics.median(secs[1:]) * 1e3
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"[{card}] 4t train(run, {SHARD_STEPS}, mesh=(1, 1) NCCL) "
+              f"{cfg.name} at {TRAIN_LAYERS} layers, bf16, batch "
+              f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: losses {got} == one-card "
+              f"{want} bit for bit, every parameter leaf bit for bit; step "
+              f"times {[round(t * 1e3, 2) for t in secs]} ms (host clock), "
+              f"median of steps 2-{SHARD_STEPS} {step_ms:.2f} ms, "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s; peak device memory "
+              f"{peak_gib:.2f} GiB; router launches {n}", flush=True)
+
+        # a prefill and 8 decode steps, unsharded and under the mesh, on
+        # the trained weights; the tokens are the unsharded greedy ones
+        axes = mesh_lib.data_axes(mesh)
+        max_len = SHARD_PROMPT + SHARD_DECODE
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (TRAIN_BATCH, SHARD_PROMPT)), dtype=torch.int32,
+            device=dev)
+        arms = {}
+        for arm in ("one card", "mesh"):
+            caches = stacked.init_cache(cfg, TRAIN_BATCH, max_len, dev)
+            p = params
+            if arm == "mesh":
+                p = sharding.place(params, mesh,
+                                   sharding.param_specs(mesh, params))
+                caches = sharding.place(caches, mesh, sharding.cache_specs(
+                    mesh, caches, axes))
+                prefill = steps.make_sharded_prefill_step(cfg, mesh)
+                decode = steps.make_sharded_decode_step(cfg, mesh)
+            else:
+                prefill = steps.make_prefill_step(cfg)
+                decode = steps.make_decode_step(cfg)
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = prefill(p, prompt, caches)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            logits, toks = [lg], arms.get("one card", {}).get("toks", [])
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            fresh = not toks
+            t0 = time.perf_counter()
+            for i in range(SHARD_DECODE):
+                if fresh:
+                    toks.append(tok)
+                pos = torch.full((TRAIN_BATCH,), SHARD_PROMPT + i,
+                                 dtype=torch.int32, device=dev)
+                lg, caches = decode(p, toks[i], pos, caches)
+                logits.append(lg)
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / SHARD_DECODE
+            n = counts()
+            expect(all(n[k] == TRAIN_LAYERS * (1 + SHARD_DECODE)
+                       for k in router), f"4t {arm} serving: router "
+                   f"launches {n}")
+            if arm == "mesh":
+                for k in router:
+                    launched[k] += n[k]
+            arms[arm] = {"logits": logits, "toks": toks,
+                         "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                         "peak_gib": torch.cuda.max_memory_allocated() / GIB,
+                         "launches": n}
+            del p, caches
+        same = [torch.equal(a, b) for a, b in zip(arms["one card"]["logits"],
+                                                   arms["mesh"]["logits"])]
+        expect(len(same) == 1 + SHARD_DECODE and all(same),
+               f"4t serving: logits under the mesh differ from the "
+               f"unsharded ones at steps {[i for i, e in enumerate(same) if not e]}")
+        for arm, r in arms.items():
+            print(f"[{card}] 4t serving, {arm}: prefill of {TRAIN_BATCH} x "
+                  f"{SHARD_PROMPT} {r['prefill_ms']:.2f} ms, {SHARD_DECODE} "
+                  f"decode steps {r['decode_ms']:.2f} ms a step "
+                  f"({TRAIN_BATCH / r['decode_ms'] * 1e3:.1f} tok/s), peak "
+                  f"device memory {r['peak_gib']:.2f} GiB, router launches "
+                  f"{r['launches']}", flush=True)
+        print(f"4t serving: the prefill's and {SHARD_DECODE} decode steps' "
+              "logits under the mesh == unsharded, bit for bit", flush=True)
+        del params, arms
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launched, "step_ms": step_ms, "peak_gib": peak_gib,
+            "tokens_per_s": tokens / step_ms * 1e3}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2451,6 +2626,15 @@ def main() -> int:
         slice_launches[name] += n
     print(f"phase 4s: {time.perf_counter() - t0:.1f} s; launches of the "
           f"counted runs {train_s['launches']}", flush=True)
+
+    # ---- 4t. sharded execution at world 1: train(mesh=...) and serving
+    # under a (1, 1) NCCL mesh against the one-card paths, bit for bit
+    t0 = time.perf_counter()
+    shard_t = phase_4t(card, zero_counts, counts, train_s["b"]["losses"])
+    for name, n in shard_t["launches"].items():
+        slice_launches[name] += n
+    print(f"phase 4t: {time.perf_counter() - t0:.1f} s; launches of the "
+          f"counted runs {shard_t['launches']}", flush=True)
 
     # ---- 5. times
     B, W, N = planes.shape

@@ -6,8 +6,8 @@ packages train on the same batches and a restarted job replays identical
 data.  ``host_batch`` carries a batch onto a device.  The VLM and audio
 frontends are stubs: their archs take precomputed patch / frame
 embeddings, drawn here from a fixed seed as the reference draws them.
-The batch sharded over a mesh (``sharded_batch``) comes with the
-multi-chip launch layer (``ROADMAP.md``, A12d).
+``sharded_batch`` draws only this rank's rows of a batch laid out over a
+mesh's data axes.
 """
 from __future__ import annotations
 
@@ -58,6 +58,31 @@ def host_batch(cfg: ArchConfig, shape: ShapeConfig, step: int,
                      seq or shape.seq_len)
     return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
             torch.from_numpy(np.ascontiguousarray(y)).to(dev))
+
+
+def sharded_batch(cfg: ArchConfig, shape: ShapeConfig, step: int, mesh,
+                  data_axes: Tuple[str, ...], seed: int = 0,
+                  dtensor: bool = False):
+    """This rank's rows of ``step``'s (tokens, labels), the batch dim laid
+    out over ``data_axes`` of ``mesh`` (``sharding.batch_spec``): each rank
+    draws its own rows, with no broadcast, and ranks along the model axis
+    draw the same ones.  int32 tensors on the rank's device; with
+    ``dtensor``, DTensors of the global (batch, seq) shape."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import sharding
+    b, s = shape.global_batch, shape.seq_len
+    rows = sharding.local_rows(mesh, b, data_axes)
+    dev = sharding.mesh_device(mesh)
+    x, y = TokenSource(cfg.vocab, seed).batch(step, rows.start,
+                                              rows.stop - rows.start, s)
+    out = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+                for t in (x, y))
+    if not dtensor:
+        return out
+    where = sharding.placements(mesh, sharding.batch_spec(mesh, (b, s),
+                                                          data_axes))
+    return tuple(DTensor.from_local(t, mesh, where, run_check=False)
+                 for t in out)
 
 
 def frontend_stub(cfg: ArchConfig, batch: int, device,

@@ -35,6 +35,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import serving, sort as sort_engine
 from repro_torch.kernels import backend
@@ -95,16 +96,30 @@ def _print_report(report: Dict) -> None:
 
 
 def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
-          prune_rate: float = 0.0, seed: int = 0, device=None) -> Dict:
+          prune_rate: float = 0.0, seed: int = 0, device=None,
+          mesh=None) -> Dict:
     """Batched prefill of a random prompt, then ``max_new - 1`` decode
     steps with top-k sampling, over random weights drawn from ``seed`` on
-    ``device`` (``None``: the card).  Returns the tokens and the times."""
+    ``device`` (``None``: the card).  Returns the tokens and the times.
+
+    On ``mesh`` (a DeviceMesh; every rank of it calls this) each rank
+    prefills and decodes its rows of the batch
+    (``steps.make_sharded_*_step``), the caches laid out over the mesh by
+    ``launch.sharding.cache_specs``.  The steps compute on whole weights,
+    so each rank keeps the weights it drew from ``seed`` whole (what
+    placing them by their specs and gathering them back would give).
+    Every rank samples the whole batch's next tokens from the gathered
+    logits with the same generator, so the tokens are the unsharded run's
+    wherever the logits are."""
     from repro_torch.data import pipeline as dp
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import sampling, stacked
     from repro_torch.pruning import insitu
 
-    dev = backend.resolve_device(device)
+    dev = (sharding.mesh_device(mesh) if mesh is not None
+           else backend.resolve_device(device))
     wf = bool(cfg.frontend_tokens)
     max_len = prompt_len + max_new
     params = stacked.init_params(
@@ -118,8 +133,6 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
         print(f"[serve] in-situ pruned: weight sparsity "
               f"{pstats['weight_sparsity']:.1%}")
 
-    prefill = steps_lib.make_prefill_step(cfg, with_frontend=wf)
-    decode = steps_lib.make_decode_step(cfg, with_frontend=wf)
     # the reference's prompt: the same numpy draw from the same seed
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
@@ -127,22 +140,42 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
     # the VLM / audio frontend stub, given to prefill and every decode step
     fe = (dp.frontend_stub(cfg, batch, dev),) if wf else ()
     sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
-
     caches = stacked.init_cache(cfg, batch, max_len, dev)
+    if mesh is None:
+        prefill = steps_lib.make_prefill_step(cfg, with_frontend=wf)
+        decode = steps_lib.make_decode_step(cfg, with_frontend=wf)
+        rows, last = slice(0, batch), (lambda lg: lg[:, -1, :])
+    else:
+        data_axes = mesh_lib.data_axes(mesh)
+        prefill = steps_lib.make_sharded_prefill_step(cfg, mesh,
+                                                      with_frontend=wf)
+        decode = steps_lib.make_sharded_decode_step(cfg, mesh,
+                                                    with_frontend=wf)
+        caches = sharding.place(caches, mesh, sharding.cache_specs(
+            mesh, caches, data_axes))
+        rows = sharding.local_rows(mesh, batch, data_axes)
+        fe = tuple(f[rows] for f in fe)
+        where = sharding.placements(mesh, sharding.batch_spec(
+            mesh, (batch, cfg.vocab), data_axes))
+
+        def last(lg):
+            return DTensor.from_local(lg[:, -1, :].contiguous(), mesh, where,
+                                      run_check=False).full_tensor()
+
     t0 = time.monotonic()
-    logits, caches = prefill(params, prompt, caches, *fe)
+    logits, caches = prefill(params, prompt[rows], caches, *fe)
     sync()
     prefill_s = time.monotonic() - t0
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tok = sampling.sample_logits(logits[:, -1, :], gen, top_k)[:, None]
+    tok = sampling.sample_logits(last(logits), gen, top_k)[:, None]
     out = [prompt, tok]
     pos = torch.full((batch,), prompt_len - 1, dtype=torch.int32, device=dev)
     t0 = time.monotonic()
     for _ in range(max_new - 1):
         pos = pos + 1
-        logits, caches = decode(params, tok, pos, caches, *fe)
-        tok = sampling.sample_logits(logits[:, -1, :], gen, top_k)[:, None]
+        logits, caches = decode(params, tok[rows], pos[rows], caches, *fe)
+        tok = sampling.sample_logits(last(logits), gen, top_k)[:, None]
         out.append(tok)
     seq = torch.cat(out, dim=1).cpu().numpy()
     decode_s = time.monotonic() - t0

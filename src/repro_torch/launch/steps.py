@@ -6,15 +6,33 @@ A train step is two halves, so that a driver can retry the first alone:
 :meth:`TrainStep.grads` (forward and backward, nothing changed) and
 :meth:`TrainStep.apply` (the AdamW update, in place).  Calling the step
 runs both, as the reference's jitted step does.
+
+Under a mesh (:class:`ShardedTrainStep`, :func:`make_sharded_prefill_step`,
+:func:`make_sharded_decode_step`) the state is sharded and the compute is
+data-parallel.  Every leaf of the parameters, the optimizer state and the
+caches is a DTensor placed by ``launch.sharding``'s spec for it.  Each rank
+gathers the whole value of each parameter and runs the steps above, plain
+tensors only, on its own rows of the batch (and of the caches, with their
+whole heads): ranks along the model axis compute the same rows, so the
+model axis shards storage only.  A gradient is averaged over the data
+axes straight onto its leaf's placements (a reduce-scatter), and AdamW
+runs in place on the local shards, its whole-leaf reductions made whole
+over the ranks.  The kernels never see a DTensor.  On a mesh of one rank
+every collective is the identity, and the steps equal the unsharded ones
+bit for bit.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import tree
-from repro_torch.models import stacked
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
+from repro_torch.models import shard, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
 
@@ -140,3 +158,199 @@ def make_decode_step(cfg: ArchConfig, with_frontend: bool = False):
     if with_frontend:
         return decode
     return lambda p, t, z, c: decode(p, t, z, c, None)
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+
+def whole(t):
+    """A leaf's whole value: a DTensor gathered over its mesh (on every
+    rank of it), a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _local(t):
+    """This rank's shard of a DTensor (the tensor it holds, so writes to it
+    land in the DTensor); anything else as it is."""
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            return t.to_local()
+    return t
+
+
+def _locals(tree_):
+    return tree.map_with_path(lambda _, t: _local(t), tree_)
+
+
+def shard_reduce(mesh, like) -> adamw.Reduce:
+    """AdamW's reduction hook for a tree laid out as ``like`` (DTensors on
+    ``mesh``): a value taken over a leaf's local shard, combined over the
+    mesh dims that shard the leaf (sum or max), is the whole leaf's."""
+    names = mesh.mesh_dim_names
+    spread = {path: [names[i] for i, pl in enumerate(t.placements)
+                     if isinstance(pl, Shard)]
+              for path, t in tree.flatten_with_path(like)}
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+    def reduce(path, value, op):
+        for axis in spread[path]:
+            dist.all_reduce(value, op=ops[op], group=mesh.get_group(axis))
+        return value
+
+    return reduce
+
+
+def _in_mesh(mesh) -> shard.mesh_axes:
+    return shard.mesh_axes(mesh_lib.data_axes(mesh),
+                           mesh_lib.model_axis(mesh), mesh)
+
+
+class ShardedTrainStep:
+    """The train step over a mesh: (params, opt_state, tokens, labels[,
+    frontend]) -> (params, opt_state, metrics), params and the optimizer
+    state's leaves DTensors (changed in place), the batch this rank's rows
+    (plain tensors, or DTensors of the whole batch).  The metrics are the
+    whole batch's: the loss and ``nll`` averaged over the data ranks, the
+    routers' ``aux`` already global (``shard.data_mean``), ``grad_norm``
+    over every leaf's whole value."""
+
+    def __init__(self, cfg: ArchConfig, ocfg: adamw.AdamWConfig, mesh,
+                 remat: str = "full", accum: int = 1,
+                 accum_dtype: torch.dtype = torch.float32):
+        self.step = TrainStep(cfg, ocfg, remat=remat, accum=accum,
+                              accum_dtype=accum_dtype)
+        self.mesh = mesh
+        data = mesh_lib.data_axes(mesh)
+        # a rank's gradient: its rows' average, the same along the model
+        # axis
+        self.partial = [Partial("avg") if name in data else Replicate()
+                        for name in mesh.mesh_dim_names]
+
+    def grads(self, params, tokens, labels, frontend=None):
+        """The forward and backward half: (grads, loss, metrics), the grads
+        DTensors placed as the params are; nothing is changed."""
+        full = tree.map_with_path(lambda _, t: whole(t), params)
+        with _in_mesh(self.mesh):
+            g, loss, metrics = self.step.grads(
+                full, _local(tokens), _local(labels), _local(frontend))
+            loss = shard.data_mean(loss)
+            metrics = dict(metrics, nll=shard.data_mean(metrics["nll"]))
+        del full
+        g = tree.map_with_path(
+            lambda path, p: DTensor.from_local(
+                tree.at(g, path), self.mesh, self.partial, run_check=False
+            ).redistribute(self.mesh, p.placements), params)
+        return g, loss, metrics
+
+    def apply(self, params, opt_state: adamw.OptState, grads, loss, metrics):
+        """The update half: AdamW on every rank's local shards, in place."""
+        local = adamw.OptState(_locals(opt_state.m), _locals(opt_state.v),
+                               _locals(opt_state.err),
+                               _local(opt_state.count))
+        _, new, om = adamw.update(_locals(params), _locals(grads), local,
+                                  self.step.ocfg,
+                                  shard_reduce(self.mesh, params))
+        count = new.count
+        if isinstance(opt_state.count, DTensor):
+            count = DTensor.from_local(count, self.mesh,
+                                       opt_state.count.placements,
+                                       run_check=False)
+        return params, opt_state._replace(count=count), \
+            {"loss": loss, **metrics, **om}
+
+    def __call__(self, params, opt_state, tokens, labels, frontend=None):
+        grads, loss, metrics = self.grads(params, tokens, labels, frontend)
+        return self.apply(params, opt_state, grads, loss, metrics)
+
+
+def make_sharded_train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig, mesh,
+                            remat: str = "full", accum: int = 1,
+                            accum_dtype: torch.dtype = torch.float32
+                            ) -> ShardedTrainStep:
+    """The train step over ``mesh`` (:class:`ShardedTrainStep`).  With
+    ``accum`` > 1 each rank takes its own rows as that many microbatches,
+    so the routers' load-balance loss groups rows unlike the unsharded
+    step's microbatches (the dense loss is the same)."""
+    return ShardedTrainStep(cfg, ocfg, mesh, remat=remat, accum=accum,
+                            accum_dtype=accum_dtype)
+
+
+def init_sharded_opt_state(params, ocfg: adamw.AdamWConfig, mesh
+                           ) -> adamw.OptState:
+    """AdamW's state for params laid out on ``mesh``: m, v (and err) zeros
+    of each local shard, placed as the param is, with no whole-leaf
+    temporary; ``count`` replicated."""
+    local = adamw.init(_locals(params), ocfg)
+
+    def like(tr):
+        return tree.map_with_path(
+            lambda path, t: DTensor.from_local(
+                t, mesh, tree.at(params, path).placements, run_check=False),
+            tr)
+
+    return adamw.OptState(like(local.m), like(local.v), like(local.err),
+                          DTensor.from_local(local.count, mesh,
+                                             sharding.placements(mesh, ()),
+                                             run_check=False))
+
+
+def _serving_step(mesh, fn):
+    """``fn(params, caches, *rows)`` run on this rank: the whole params,
+    the rank's rows of the caches with their whole heads (the model axis's
+    placement is gathered for the step and restored after) and of the
+    other inputs.  Returns (logits of the rank's rows, caches)."""
+    model = list(mesh.mesh_dim_names).index(mesh_lib.model_axis(mesh))
+
+    def rows(c):
+        where = list(c.placements)
+        where[model] = Replicate()
+        return where
+
+    def step(params, caches, *inputs):
+        full = tree.map_with_path(lambda _, t: whole(t), params)
+        mine = tree.map_with_path(
+            lambda _, c: _local(c.redistribute(mesh, rows(c))), caches)
+        with _in_mesh(mesh):
+            logits, mine = fn(full, mine, *map(_local, inputs))
+        caches = tree.map_with_path(
+            lambda path, c: DTensor.from_local(
+                tree.at(mine, path), mesh, rows(c), run_check=False
+            ).redistribute(mesh, c.placements), caches)
+        return logits, caches
+
+    return step
+
+
+def make_sharded_prefill_step(cfg: ArchConfig, mesh,
+                              with_frontend: bool = False):
+    """(params, tokens, caches[, frontend]) -> (logits, caches) over
+    ``mesh``: the caches DTensors placed by ``sharding.cache_specs``, the
+    tokens (and frontend) this rank's rows or DTensors of the whole batch,
+    the logits this rank's rows."""
+    prefill = make_prefill_step(cfg, with_frontend=True)
+    step = _serving_step(mesh, lambda p, c, t, fe: prefill(p, t, c, fe))
+
+    def run(params, tokens, caches, frontend=None):
+        return step(params, caches, tokens, frontend)
+
+    if with_frontend:
+        return run
+    return lambda p, t, c: run(p, t, c, None)
+
+
+def make_sharded_decode_step(cfg: ArchConfig, mesh,
+                             with_frontend: bool = False):
+    """(params, token (B,1), pos (B,), caches[, frontend]) -> (logits,
+    caches) over ``mesh``, laid out as :func:`make_sharded_prefill_step`'s."""
+    decode = make_decode_step(cfg, with_frontend=True)
+    step = _serving_step(mesh,
+                         lambda p, c, t, z, fe: decode(p, t, z, c, fe))
+
+    def run(params, token, pos, caches, frontend=None):
+        return step(params, caches, token, pos, frontend)
+
+    if with_frontend:
+        return run
+    return lambda p, t, z, c: run(p, t, z, c, None)

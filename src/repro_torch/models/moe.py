@@ -11,6 +11,9 @@ the port of ``repro.models.moe``.
   default) or ``sort`` (the comparison-free LSB radix sort of
   :func:`radix_select.radix_sort_keys` orders the (token, expert) pairs,
   scattered into an (E, C, d) expert-major buffer, global capacity).
+  Under a mesh each rank dispatches its own rows, so the einsum dispatch,
+  whose capacity is per batch row, is unchanged, while the sort
+  dispatch's capacity counts the rank's tokens only.
 
 Router weights and gating math run in float32.
 """
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import sort as sort_engine
 from repro_torch.core import radix_select as rs
+from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _init, apply_mlp, glu_act, init_mlp
 
@@ -109,12 +113,15 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     logits = x.float() @ params["router"]                  # (B, T, E)
     gates, eidx = route_topk(logits, k, cfg.router_impl)   # (B, T, k)
 
-    # load-balance auxiliary loss (Switch-style)
-    me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+    # load-balance auxiliary loss (Switch-style): a product of means over
+    # the whole batch, so under a mesh both means are taken over the data
+    # ranks' rows (shard.data_mean; the identity without a mesh)
+    me = shard.data_mean(torch.softmax(logits, dim=-1).mean(dim=(0, 1)))
+    ce = shard.data_mean(torch.zeros(
+        (E,), dtype=torch.float32, device=x.device).index_add_(
         0, eidx.reshape(-1).long(),
         torch.ones(eidx.numel(), dtype=torch.float32, device=x.device)
-    ) / (B * T * k)
+    ) / (B * T * k))
     aux = E * (me * ce).sum()
 
     if dispatch == "sort":

@@ -17,11 +17,18 @@ corrections) stay on the device; nothing waits on the host.
 
 Gradient compression (``compress=True``) quantizes each leaf to int8 with
 one symmetric scale per tensor, the residual carried in ``err``.
+
+Under a mesh :func:`update` runs on each rank's local shards.  The
+reductions over a whole leaf (its sum of squares for the global norm and
+the clip, its int8 scale's max) then go through ``reduce(path, value,
+op)``, which the sharded train step gives: it combines the shards' values
+over the ranks that hold the leaf's other shards.  Without it (one
+device) it is the identity and the arithmetic is unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +38,15 @@ from repro_torch import tree
 # a leaf's leading axis is cut into pieces of at most this many elements,
 # or into its single rows where a row is larger
 PIECE_ELEMENTS = 1 << 28
+
+# reduce(path, value, op): a leaf's partial value ("sum" or "max") made
+# whole over the shards of the leaf at ``path``
+Reduce = Callable[[tuple, torch.Tensor, str], torch.Tensor]
+
+
+def _whole(path, value: torch.Tensor, op: str) -> torch.Tensor:
+    """The reduction hook of an unsharded state: every leaf is whole."""
+    return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +86,11 @@ def _schedule(cfg: AdamWConfig, count: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm.float()
 
 
-def global_norm(tree_) -> torch.Tensor:
+def global_norm(tree_, reduce: Reduce = _whole) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in float32."""
     total = None
-    for _, x in tree.flatten_with_path(tree_):
-        s = _sum_squares(_float_pieces(x))
+    for path, x in tree.flatten_with_path(tree_):
+        s = reduce(path, _sum_squares(_float_pieces(x)), "sum")
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -116,13 +132,15 @@ def _sum_squares(pieces) -> torch.Tensor:
     return total
 
 
-def _compress(g: torch.Tensor, e: torch.Tensor):
+def _compress(g: torch.Tensor, e: torch.Tensor, whole_max):
     """Error-feedback int8: quantize (g + e) with one scale for the whole
-    leaf, and leave the rest, (g + e) - dequantized, in ``e``.  Returns a
-    function giving the dequantized gradient as float32 pieces."""
+    leaf (``whole_max`` makes a shard's max the leaf's), and leave the
+    rest, (g + e) - dequantized, in ``e``.  Returns a function giving the
+    dequantized gradient as float32 pieces."""
     amax = torch.zeros((), dtype=torch.float32, device=g.device)
     for gp, ep in _split(g, e):
         amax = torch.maximum(amax, (gp.float() + ep).abs().max())
+    amax = whole_max(amax)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
     for gp, ep, qp in _split(g, e, q):
@@ -138,11 +156,13 @@ def _float_pieces(g: torch.Tensor):
 
 
 @torch.no_grad()
-def update(params, grads, state: OptState, cfg: AdamWConfig):
+def update(params, grads, state: OptState, cfg: AdamWConfig,
+           reduce: Reduce = _whole):
     """One step: (params, state, metrics), the parameters and the state's
     tensors changed in place (the returned trees are the given ones, with a
     new ``count``).  ``grads`` has the parameters' structure; it is read,
-    never written."""
+    never written.  ``reduce`` makes a leaf's sum or max whole (see the
+    module's docstring)."""
     p_leaves = tree.flatten_with_path(params)
     g_leaves = dict(tree.flatten_with_path(grads))
     m_leaves = dict(tree.flatten_with_path(state.m))
@@ -152,14 +172,15 @@ def update(params, grads, state: OptState, cfg: AdamWConfig):
     g_list = [g_leaves[path] for path, _ in p_leaves]
     if cfg.compress:
         e_leaves = dict(tree.flatten_with_path(state.err))
-        sources = [_compress(g, e_leaves[path])
+        sources = [_compress(g, e_leaves[path],
+                             lambda t, path=path: reduce(path, t, "max"))
                    for (path, _), g in zip(p_leaves, g_list)]
     else:
         sources = [lambda g=g: _float_pieces(g) for g in g_list]
 
     gnorm = None
-    for src in sources:
-        s = _sum_squares(src())
+    for (path, _), src in zip(p_leaves, sources):
+        s = reduce(path, _sum_squares(src()), "sum")
         gnorm = s if gnorm is None else gnorm + s
     gnorm = torch.sqrt(gnorm)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),

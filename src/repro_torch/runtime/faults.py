@@ -426,8 +426,10 @@ def best_mesh_shape(n_devices: int, model_parallel: int) -> Tuple[int, int]:
     return (n_devices // mp, mp)
 
 
-class DeviceMesh(NamedTuple):
-    """A (data, model) grid of ``torch.device``s with its axis names."""
+class DeviceGrid(NamedTuple):
+    """A (data, model) grid of ``torch.device``s with its axis names: what
+    :func:`elastic_remesh` lays out when no process group is up (one
+    process, no collective)."""
     devices: np.ndarray              # (dp, mp) object array of devices
     axis_names: Tuple[str, ...]
 
@@ -436,12 +438,51 @@ class DeviceMesh(NamedTuple):
         return dict(zip(self.axis_names, self.devices.shape))
 
 
+# the grid's earlier name; a mesh collectives run over is torch's
+# ``torch.distributed.device_mesh.DeviceMesh``
+DeviceMesh = DeviceGrid
+
+
 def elastic_remesh(devices: Sequence, model_parallel: int,
-                   axis_names=("data", "model")) -> DeviceMesh:
-    """Rebuild a device grid from the surviving devices (scale-down after
-    failure or scale-up after repair)."""
+                   axis_names=("data", "model")):
+    """Rebuild a mesh from the survivors (scale-down after failure or
+    scale-up after repair): the largest (data, model) grid of
+    :func:`best_mesh_shape` over the first of them.  With a process group
+    up, ``devices`` are ranks and the result is a ``DeviceMesh`` that
+    collectives run over; every rank of the group must call it (building a
+    mesh is collective), and ranks outside it hold nothing of what is
+    placed on it.  Without one, they are devices and the result a
+    :class:`DeviceGrid`."""
+    import torch.distributed as dist
     n = len(devices)
     dp, mp = best_mesh_shape(n, model_parallel)
+    if dist.is_available() and dist.is_initialized():
+        from torch.distributed.device_mesh import DeviceMesh as TorchMesh
+        from repro_torch.launch import mesh as mesh_lib
+        ranks = torch.tensor([int(r) for r in devices[: dp * mp]])
+        return TorchMesh(mesh_lib.device_type(), ranks.reshape(dp, mp),
+                         mesh_dim_names=tuple(axis_names))
     grid = np.empty(dp * mp, dtype=object)
     grid[:] = [torch.device(d) for d in devices[: dp * mp]]
-    return DeviceMesh(grid.reshape(dp, mp), tuple(axis_names))
+    return DeviceGrid(grid.reshape(dp, mp), tuple(axis_names))
+
+
+def reshard_state(state, mesh, spec_fn: Callable) -> object:
+    """Re-shard a state tree onto ``mesh`` using ``spec_fn(path, leaf) ->
+    spec`` (a tuple, as ``launch.sharding`` gives): the elastic-rescale
+    restore path.  Each leaf is made whole first (a DTensor is gathered
+    over its old mesh, on every rank of it), then placed; ranks outside
+    ``mesh`` hold empty shards."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch import tree
+    from repro_torch.launch import sharding
+    dev = sharding.mesh_device(mesh)
+
+    def one(path, leaf):
+        whole = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+        return distribute_tensor(
+            whole.to(dev), mesh,
+            sharding.placements(mesh, spec_fn(path, leaf)),
+            src_data_rank=None)
+
+    return tree.map_with_path(one, state)

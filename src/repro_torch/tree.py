@@ -73,6 +73,13 @@ def _map(fn, node, path: Path):
     return fn(path, node)
 
 
+def at(tree, path: Path):
+    """The subtree (or leaf) of ``tree`` at ``path``."""
+    for key in path:
+        tree = getattr(tree, key) if isinstance(key, Attr) else tree[key]
+    return tree
+
+
 def keystr(path: Path) -> str:
     """The path's printed name: ``[repr(key)]`` for a dict key, ``[i]``
     for a sequence index, ``.name`` for a named tuple's field."""
