@@ -164,6 +164,19 @@ order; any failure raises and exits non-zero:
       mesh (params and caches placed by the reference's specs) against
       the unsharded steps, logits bit for bit; ms a step, tokens a
       second, peak memory;
+   u. the roofline (``launch/roofline.py``) on the card: 4s.b's train
+      step (qwen2-moe-a2.7b at its published widths, 4 layers, batch 4 x
+      512, remat none, router ``pallas``) timed, then counted by
+      ``roofline.count`` (FLOPs, bytes, collectives, aten ops by bytes),
+      its FLOPs equal within 1 % to the dry run's count of the same step
+      on fake tensors at world 1 (``launch/dryrun.py``, a fake group of
+      one rank) and at least ``model_flops``, the router kernels launched;
+      the same for one decode step of 4q's qwen2-moe-a2.7b at full depth,
+      batch 4; then ``python -m repro_torch.launch.dryrun`` in
+      subprocesses for olmo-1b ``decode_32k`` and qwen2-moe-a2.7b
+      ``train_4k`` on 16 x 16 (a fake group of 256 ranks): each record's
+      bottleneck, terms and per-rank peak against the card's memory, and
+      the world-1 dry run's peak beside the real step's;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -187,6 +200,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1589,6 +1603,237 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
             "tokens_per_s": tokens / step_ms * 1e3}
 
 
+# phase 4u: the roofline on the card and the dry run.  a: 4s.b's train
+# step; b: one decode step of 4q's qwen2-moe at full depth, batch 4, after
+# a prefill of 16; each timed, counted, and held to the dry run's count of
+# the same step on fake tensors at world 1.  c: the dry run's CLI on
+# 16 x 16 for these cells (the smallest serving cell and 4s.b's model at
+# its reference shape)
+ROOF_TIMED_STEPS, ROOF_FLOP_RTOL = 3, 0.01
+DRYRUN_CELLS = (("olmo_1b", "decode_32k"), ("qwen2_moe_a2_7b", "train_4k"))
+CARD_GIB = 80
+
+
+def fake_count(cfg, shape):
+    """The dry run's count of one step of ``cfg`` at ``shape`` (remat
+    none) on fake tensors, at world 1: a fake group of one rank, the (1, 1)
+    mesh, the port's sharded step (:func:`repro_torch.launch.dryrun.measure`),
+    router ``radix`` (plain torch: the FLOPs of the products are the same
+    as under the fused router).  Returns (counts, memory)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    with dryrun.fake_group(1):
+        mesh = mesh_lib.make_host_mesh()
+        with FakeTensorMode():
+            cell = dryrun.make_cell(
+                dataclasses.replace(cfg, router_impl="radix"), shape, mesh,
+                remat="none", accum=1)
+            return dryrun.measure(cell)
+
+
+def roofline_report(card: str, tag: str, counts, fake, fake_mem, roof,
+                    step_ms: float, peak_gib: float, embed_params: int,
+                    active_params: int) -> None:
+    """The gates of a counted step (card FLOPs == the fake count within
+    1 %; at least model_flops less the share model_flops gives the token
+    embedding table, ``embed_params`` of ``active_params``) and its lines:
+    the roofline, the measured step beside it, aten ops by output bytes,
+    the peaks."""
+    from repro_torch.launch import roofline as rl
+    diff = abs(counts.flops - fake.flops) / fake.flops
+    expect(diff <= ROOF_FLOP_RTOL, f"{tag}: the card counted {counts.flops} "
+           f"FLOPs, the fake step {fake.flops} ({diff:.4%} apart)")
+    # model_flops (6 or 2 x N x D, accounting.model_flops) counts the
+    # token embedding table's V x d parameters as multiplied; the step
+    # gathers its rows and multiplies none of them, so at a cut depth the
+    # lookup's share can exceed what the cut layers compute beyond N x D
+    lookup = roof.model_flops * embed_params / active_params
+    expect(roof.flops_per_device >= roof.model_flops - lookup, f"{tag}: "
+           f"flops_per_device {roof.flops_per_device} < model_flops "
+           f"{roof.model_flops} less the embedding lookup's {lookup}")
+    print(f"[{card}] {tag} roofline: {rl.summary(roof, counts)}; "
+          f"step_time_s {roof.step_time_s:.6f} (roofline_fraction "
+          f"{roof.roofline_fraction:.4f}); measured {step_ms:.2f} ms a step "
+          f"(host clock), the roofline's step time / measured "
+          f"{roof.step_time_s * 1e3 / step_ms:.4f}; FLOPs counted on the "
+          f"card {counts.flops:.6e} == the dry run's fake count at world 1 "
+          f"{fake.flops:.6e} ({diff:.2e} apart), bytes "
+          f"{counts.bytes_accessed:.6e} / {fake.bytes_accessed:.6e}; "
+          f"model_flops {roof.model_flops:.6e}, "
+          f"of it the embedding lookup's {lookup:.6e}: flops_per_device "
+          + (">=" if roof.flops_per_device >= roof.model_flops else "<")
+          + " model_flops", flush=True)
+    print(f"[{card}] {tag} aten ops by output bytes (op, bytes, calls): "
+          + "; ".join(f"{op} {b} {n}" for op, b, n
+                      in rl.op_byte_profile(counts, 10)), flush=True)
+    print(f"[{card}] {tag} memory: the dry run's world-1 peak_est_bytes "
+          f"{fake_mem['peak_est_bytes'] / GIB:.2f} GiB (arguments "
+          f"{fake_mem['argument_bytes'] / GIB:.2f}, temp "
+          f"{fake_mem['temp_bytes'] / GIB:.2f}, outputs "
+          f"{fake_mem['output_bytes'] / GIB:.2f}, aliased "
+          f"{fake_mem['alias_bytes'] / GIB:.2f}); the real step's "
+          f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB", flush=True)
+
+
+def phase_4u(card: str, zero_counts, counts) -> dict:
+    """The roofline of the card's train and decode steps, and the dry run.
+    a: 4s.b's train step (qwen2-moe-a2.7b, 4 layers, batch 4 x 512, remat
+    none, router pallas) timed (a warm-up, then 3 steps), then one step
+    counted by ``roofline.count``; b: 4q's model at full depth, a prefill
+    of 16 at batch 4, 8 decode steps timed, one counted; each held to the
+    dry run's fake count at world 1.  c: the dry run's CLI for
+    ``DRYRUN_CELLS`` on a fake 16 x 16 group.  Returns the router
+    launches of the counted and timed runs and the numbers."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import steps
+    from repro_torch.models import accounting, stacked
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    router = ("radix_topk", "bitplane_pack")
+    launched = dict.fromkeys(router, 0)
+    out = {}
+
+    def run_counted(tag, n_calls, layers, fn):
+        zero_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        expect(all(got[k] == layers * n_calls for k in router), f"{tag}: "
+               f"router launches {got}, not {layers} x {n_calls}")
+        for k in router:
+            launched[k] += got[k]
+        return res
+
+    # ---- a. 4s.b's train step
+    full = configs.get_config(QWEN_ARCH)
+    cfg = dataclasses.replace(cut(full, TRAIN_LAYERS), router_impl="pallas")
+    tshape = ShapeConfig("4u.a", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ocfg = adamw.AdamWConfig()
+    params = stacked.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = adamw.init(params, ocfg)
+    x, y = pipeline.host_batch(cfg, tshape, 0, device=dev)
+    step = steps.make_train_step(cfg, ocfg, remat="none")
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed():
+        secs = []
+        for _ in range(1 + ROOF_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, state, x, y)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return secs
+
+    secs = run_counted("4u.a timed steps", 1 + ROOF_TIMED_STEPS,
+                       TRAIN_LAYERS, timed)
+    step_ms = statistics.median(secs[1:]) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / GIB
+    c = run_counted("4u.a counted step", 1, TRAIN_LAYERS,
+                    lambda: rl.count(step, params, state, x, y))
+    c.result = None
+    del params, state
+    torch.cuda.empty_cache()
+    fake, fake_mem = fake_count(cfg, tshape)
+    roof = rl.analyze(c, 1, accounting.model_flops(cfg, tshape))
+    print(f"[{card}] 4u.a {cfg.name} at {TRAIN_LAYERS} layers, bf16, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, remat none, router pallas: "
+          f"step times {[round(t * 1e3, 2) for t in secs]} ms (host clock, "
+          f"the first a warm-up), median {step_ms:.2f} ms; peak device "
+          f"memory {peak_gib:.2f} GiB", flush=True)
+    roofline_report(card, "4u.a", c, fake, fake_mem, roof, step_ms,
+                    peak_gib, cfg.vocab * cfg.d_model,
+                    accounting.active_param_count(cfg))
+    out["a"] = {"step_ms": step_ms, "peak_gib": peak_gib,
+                "roofline": roof.to_dict(), "flops_fake": fake.flops,
+                "peak_est_bytes_fake": fake_mem["peak_est_bytes"]}
+
+    # ---- b. one decode step of 4q's qwen2-moe at full depth, batch 4
+    qcfg = dataclasses.replace(full, router_impl="pallas")
+    max_len = SERVE_PROMPT + 2 + ROOF_TIMED_STEPS + 8
+    params = stacked.init_params(
+        qcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    caches = stacked.init_cache(qcfg, SERVE_BATCH, max_len, dev)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, qcfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), dtype=torch.int32,
+        device=dev)
+    prefill = steps.make_prefill_step(qcfg)
+    decode = steps.make_decode_step(qcfg)
+    logits, _ = prefill(params, prompt, caches)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
+                     device=dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    def decoded():
+        secs = []
+        for i in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(params, tok, pos + i, caches)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return secs
+
+    secs = run_counted("4u.b timed decode steps", 9, QWEN_LAYERS, decoded)
+    dec_ms = statistics.median(secs[1:]) * 1e3
+    dec_peak = torch.cuda.max_memory_allocated() / GIB
+    c = run_counted("4u.b counted decode step", 1, QWEN_LAYERS,
+                    lambda: rl.count(decode, params, tok, pos + 9, caches))
+    c.result = None
+    del params, caches
+    torch.cuda.empty_cache()
+    dshape = ShapeConfig("4u.b", max_len, SERVE_BATCH, "decode")
+    fake, fake_mem = fake_count(qcfg, dshape)
+    roof = rl.analyze(c, 1, accounting.model_flops(qcfg, dshape))
+    print(f"[{card}] 4u.b {qcfg.name} at {QWEN_LAYERS} layers, bf16, batch "
+          f"{SERVE_BATCH}, cache {max_len}, router pallas: decode step times "
+          f"{[round(t * 1e3, 2) for t in secs]} ms (host clock, the first "
+          f"a warm-up), median {dec_ms:.2f} ms; peak device memory "
+          f"{dec_peak:.2f} GiB", flush=True)
+    roofline_report(card, "4u.b", c, fake, fake_mem, roof, dec_ms, dec_peak,
+                    qcfg.vocab * qcfg.d_model,
+                    accounting.active_param_count(qcfg))
+    out["b"] = {"step_ms": dec_ms, "peak_gib": dec_peak,
+                "roofline": roof.to_dict(), "flops_fake": fake.flops}
+
+    # ---- c. the dry run's CLI on a fake 16 x 16 group
+    dr_dir = ROOT / "build" / "dryrun"
+    for arch, shape_name in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape_name, "--out", str(dr_dir)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=300)
+        secs_c = time.perf_counter() - t0
+        expect(proc.returncode == 0 and "bottleneck=" in proc.stdout,
+               f"4u.c dryrun {arch} {shape_name}: rc {proc.returncode}\n"
+               f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        rec = json.loads((dr_dir / f"{arch}__{shape_name}__16x16.json")
+                         .read_text())
+        r, m = rec["roofline"], rec["memory"]
+        print(f"4u.c dryrun {arch} x {shape_name} x 16x16 ({rec['chips']} "
+              f"ranks, torch {torch.__version__}): {secs_c:.1f} s; "
+              f"bottleneck={r['bottleneck']}, terms(s)=C{r['compute_s']:.4f}"
+              f"/M{r['memory_s']:.4f}/X{r['collective_s']:.4f}, "
+              f"useful_ratio {r['useful_ratio']:.4f}; peak_est_bytes a rank "
+              f"{m['peak_est_bytes'] / GIB:.2f} GiB against the card's "
+              f"{CARD_GIB} GiB", flush=True)
+        out[f"c {arch} {shape_name}"] = rec
+    out["launches"] = launched
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2635,6 +2880,15 @@ def main() -> int:
         slice_launches[name] += n
     print(f"phase 4t: {time.perf_counter() - t0:.1f} s; launches of the "
           f"counted runs {shard_t['launches']}", flush=True)
+
+    # ---- 4u. the roofline of the card's train and decode steps, held to
+    # the dry run's fake count, and the dry run on a fake 16 x 16 group
+    t0 = time.perf_counter()
+    roof_u = phase_4u(card, zero_counts, counts)
+    for name, n in roof_u["launches"].items():
+        slice_launches[name] += n
+    print(f"phase 4u: {time.perf_counter() - t0:.1f} s; launches of the "
+          f"counted runs {roof_u['launches']}", flush=True)
 
     # ---- 5. times
     B, W, N = planes.shape

@@ -19,6 +19,7 @@ attention scores, MLA's latent scores, the LM head) go through
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -83,6 +84,26 @@ class _MatmulF32(torch.autograd.Function):
         return da, db
 
 
+_form = threading.local()
+
+
+class card_form:
+    """Within it, :func:`matmul_f32` takes its card branch on host tensors
+    too: the dry run (``launch/dryrun.py``) runs a step on fake CPU
+    tensors, and counts the card's products that way.  Real host tensors
+    have no float32-output product of narrow operands: use it on fake
+    tensors only."""
+
+    def __enter__(self):
+        self.prev = getattr(_form, "card", False)
+        _form.card = True
+        return self
+
+    def __exit__(self, *exc):
+        _form.card = self.prev
+        return False
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (a: (..., M, K), b: (K, N) or batched like a) as float32,
     the sums kept in float32 and never rounded to the operands' type: the
@@ -95,7 +116,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     product as the reference's CPU run does."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and not getattr(_form, "card", False):
         return a.float() @ b.float()
     if b.dim() == 2:
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
