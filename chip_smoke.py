@@ -673,6 +673,52 @@ def f32_decode_vs_forward(tag: str, arch: str, layers: int, zero_counts,
     return got
 
 
+# bfloat16 against float32 forwards (no cache): MLA's naive prefill
+# (deepseek-v2's dense first layer) and the SSM's chunked scan (mamba2, two
+# chunks of its published 256), as published but for the depth
+BF16_CHECKS = (("deepseek_v2_236b", 1, 512), ("mamba2_1_3b", 2, 512))
+BF16_TOL = 3e-2
+
+
+def bf16_vs_f32_forward(tag: str, arch: str, layers: int, seq: int) -> dict:
+    """The forward of ``arch`` at its published widths and dtype
+    (bfloat16), ``layers`` deep, on 2 x ``seq`` tokens, against the same
+    weights widened to float32 with a float32 compute dtype: the logits'
+    difference within ``BF16_TOL`` of the float32 logits in the Frobenius
+    norm, every logit finite.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.models import stacked
+    dev = torch.device("cuda")
+    cfg = cut(configs.get_config(arch), layers)
+    expect(cfg.param_dtype == "bfloat16", f"{tag} {arch}: {cfg.param_dtype}")
+    p = stacked.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, seq)), device=dev)
+    with torch.no_grad():
+        low, _, _ = stacked.forward(p, cfg, toks)
+        p = tree.map_with_path(lambda _, t: t.float(), p)
+        wide, _, _ = stacked.forward(p, dataclasses.replace(
+            cfg, param_dtype="float32", compute_dtype="float32"), toks)
+    torch.cuda.synchronize()
+    rel = ((low.float() - wide).norm() / wide.norm()).item()
+    agree = (low.argmax(-1) == wide.argmax(-1)).float().mean().item()
+    expect(bool(torch.isfinite(low).all()) and rel <= BF16_TOL,
+           f"{tag} {arch} bf16 forward vs float32: relative error {rel} "
+           f"over {BF16_TOL}")
+    print(f"{tag} {arch} bfloat16 forward at full width, {layers} layers, "
+          f"2 x {seq} tokens, no cache ({stacked.segments(cfg)}) vs the "
+          f"same weights in float32: |diff| / |f32| {rel:.4e} <= "
+          f"{BF16_TOL} (Frobenius), max |diff| "
+          f"{(low.float() - wide).abs().max().item():.3e}, argmax agrees at "
+          f"{agree:.4f} of positions", flush=True)
+    del p, low, wide
+    torch.cuda.empty_cache()
+    return {"rel": rel, "argmax_agree": agree}
+
+
 def phase_4q(card: str, zero_counts, counts) -> dict:
     """The model zoo's serving path on the card: the ``--oneshot`` CLI at
     qwen2-moe-a2.7b's full widths and depth through the fused top-k router,
@@ -994,6 +1040,14 @@ def phase_4r(card: str, zero_counts, counts) -> dict:
     f32_decode_vs_forward("4r", LLAMA_ARCH, LLAMA_F32_LAYERS, zero_counts,
                           counts, gate=GATE)
     peak(f"{LLAMA_ARCH} float32 check")
+
+    # ---- bfloat16 MLA naive prefill and SSD chunked scan vs float32
+    for arch, layers, seq in BF16_CHECKS:
+        zero_counts()
+        out[f"bf16 {arch}"] = bf16_vs_f32_forward("4r", arch, layers, seq)
+        expect(not any(counts().values()), f"4r {arch} bf16 check: "
+               f"launched {counts()}")
+        peak(f"{arch} bf16 check")
     out["launches"] = launched
     out["peaks_gib"] = peaks
     return out
@@ -1451,7 +1505,8 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
     mesh=mesh)`` from 4s.b's seed against the one-card ``train(run, 3)``
     (every loss and every parameter leaf bit for bit), then a prefill and
     8 teacher-forced decode steps under the mesh against the unsharded
-    steps (logits bit for bit).  ``losses_4s``: 4s.b's uninterrupted
+    steps (logits bit for bit; the sharded prefill returns the last
+    position's, as sampling reads them).  ``losses_4s``: 4s.b's uninterrupted
     losses, printed beside the one-card run's.  Returns the router
     launches of the counted runs and the numbers."""
     import statistics
@@ -1491,6 +1546,8 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
                f"4t one-card train(): router launches {counts()}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # the one-card run's params, kept for the comparison below
+        held_gib = torch.cuda.memory_allocated() / GIB
         zero_counts()
         (sp, ss, got), secs = recorded_steps(lambda: trainer.train(
             run, SHARD_STEPS, mesh=mesh, log_every=1))
@@ -1525,7 +1582,9 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
               f"times {[round(t * 1e3, 2) for t in secs]} ms (host clock), "
               f"median of steps 2-{SHARD_STEPS} {step_ms:.2f} ms, "
               f"{tokens / step_ms * 1e3:.0f} tokens/s; peak device memory "
-              f"{peak_gib:.2f} GiB; router launches {n}", flush=True)
+              f"{peak_gib:.2f} GiB, {peak_gib - held_gib:.2f} GiB above the "
+              f"{held_gib:.2f} GiB held before it (the one-card run's "
+              f"params); router launches {n}", flush=True)
 
         # a prefill and 8 decode steps, unsharded and under the mesh, on
         # the trained weights; the tokens are the unsharded greedy ones
@@ -1555,6 +1614,8 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
             lg, caches = prefill(p, prompt, caches)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
+            # the sharded prefill returns the last position's logits
+            lg = lg[:, -1:]
             logits, toks = [lg], arms.get("one card", {}).get("toks", [])
             tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
             fresh = not toks
@@ -1600,7 +1661,7 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
     finally:
         dist.destroy_process_group()
     return {"launches": launched, "step_ms": step_ms, "peak_gib": peak_gib,
-            "tokens_per_s": tokens / step_ms * 1e3}
+            "held_gib": held_gib, "tokens_per_s": tokens / step_ms * 1e3}
 
 
 # phase 4u: the roofline on the card and the dry run.  a: 4s.b's train
@@ -1829,6 +1890,10 @@ def phase_4u(card: str, zero_counts, counts) -> dict:
               f"useful_ratio {r['useful_ratio']:.4f}; peak_est_bytes a rank "
               f"{m['peak_est_bytes'] / GIB:.2f} GiB against the card's "
               f"{CARD_GIB} GiB", flush=True)
+        sites = [ln.strip() for ln in proc.stdout.splitlines()
+                 if "collective bytes by site" in ln]
+        print(f"4u.c dryrun {arch} x {shape_name}: "
+              + (sites[0] if sites else "no site line"), flush=True)
         out[f"c {arch} {shape_name}"] = rec
     out["launches"] = launched
     return out

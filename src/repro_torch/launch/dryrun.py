@@ -9,8 +9,9 @@ collectives return at once.  Every tensor is made under
 ``FakeTensorMode``: shapes, dtypes and placements, no memory.  The cell is
 the port's own sharded step (``launch/steps.py``) on state placed by
 ``launch/sharding.py``'s specs, so what is counted is what this rank of
-the port would run: today each rank gathers every parameter whole and
-computes its own rows of the batch (the model axis shards storage only).
+the port would run: its rows of the batch, each layer's leaves gathered
+over the data axes while the layer runs, and its own share of the model
+axis's heads, FFN columns, experts and vocabulary.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_14b \
@@ -21,7 +22,8 @@ Where the reference asks XLA, the port counts:
 
 * ``compile_s``: the seconds to build the cell and run its step once.
 * FLOPs, bytes and collectives: :func:`repro_torch.launch.roofline.count`
-  over the step, for this rank.
+  over the step, for this rank; the collectives' bytes by the function
+  that issued them (``Counts.sites``) are printed.
 * ``memory``: ``argument_bytes`` and ``output_bytes`` are the local shard
   sizes of the step's arguments and outputs; ``temp_bytes`` is the peak of
   ``MemTracker`` over the step less the arguments; ``alias_bytes`` the
@@ -312,6 +314,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
           f"bytes={counts.bytes_accessed:.3e} useful_ratio="
           f"{roof.useful_ratio:.4f} collectives="
           f"{counts.collectives['counts']}", flush=True)
+    print(f"  collective bytes by site: "
+          f"{dict(sorted(counts.sites.items(), key=lambda kv: -kv[1]))}",
+          flush=True)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         name = f"{arch}__{shape_name}__{mesh_name}{tag}.json"

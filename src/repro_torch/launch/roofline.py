@@ -29,9 +29,13 @@ under a dispatch mode and counts each aten op as it runs, for this rank:
   names, from the functional ops (``_c10d_functional.all_gather_into_tensor``
   and the rest: DTensor's redistributions, ``full_tensor()``) and the
   in-place ones that ``dist.all_reduce`` and its kin issue
-  (``c10d.allreduce_``: ``steps.shard_reduce``, ``shard.data_mean``).  Point-to-point ops and
+  (``c10d.allreduce_``: the tensor-parallel collectives of
+  ``models/shard.py``, ``steps.shard_reduce``).  Point-to-point ops and
   ``broadcast_`` are not counted: no step issues one, and no DTensor
-  redistribution does.
+  redistribution does.  ``Counts.sites`` holds their bytes by the code
+  that issued them: the innermost function of ``repro_torch`` outside
+  ``models/shard.py`` and ``tree.py`` (a collective of the backward pass
+  counts under the function that called it, ``steps.py:_value_and_grad``).
 
 What the counters cannot see: the ``ctypes`` kernels (``csrc/*.cu``) are
 not aten ops, so no dispatch mode sees them.  On the card the router's
@@ -48,6 +52,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import sys
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -155,6 +161,7 @@ class Counts:
     op_bytes: Dict[str, int]
     op_calls: Dict[str, int]
     result: Any = None
+    sites: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _mm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
@@ -198,6 +205,20 @@ def _no_traffic(func) -> bool:
                for r in func._schema.returns)
 
 
+def _site() -> str:
+    """``file:function`` of the innermost frame of ``repro_torch`` outside
+    ``models/shard.py``, ``tree.py`` and this module: the model code that
+    issued a collective."""
+    f = sys._getframe(1)
+    while f is not None:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and not name.endswith(
+                ("shard.py", "roofline.py", "tree.py")):
+            return f"{os.path.basename(name)}:{f.f_code.co_name}"
+        f = f.f_back
+    return "other"
+
+
 def _shard_factor(out) -> int:
     """Ranks that split a DTensor op's work: the product of the mesh dims
     its (first) output is sharded or partial over."""
@@ -222,6 +243,7 @@ class _Counter(TorchDispatchMode):
         self.coll_n = dict.fromkeys(COLLECTIVES, 0)
         self.op_bytes: Dict[str, int] = {}
         self.op_calls: Dict[str, int] = {}
+        self.sites: Dict[str, int] = {}
         self.defer = False      # the next DTensor op goes on to DTensor
         self.in_dtensor = 0     # depth of DTensor ops being desugared
 
@@ -232,9 +254,12 @@ class _Counter(TorchDispatchMode):
         kind = _C10D.get(func._overloadpacket.__name__)
         if kind is not None:
             name, where = kind
-            self.coll[name] += sum(map(_nbytes, _tensors(
+            nbytes = sum(map(_nbytes, _tensors(
                 out if where == "out" else args[:1])))
+            self.coll[name] += nbytes
             self.coll_n[name] += 1
+            site = f"{name} {_site()}"
+            self.sites[site] = self.sites.get(site, 0) + nbytes
         return True
 
     def _op(self, func, args, kwargs, out, flops) -> None:
@@ -299,7 +324,7 @@ def count(fn: Callable, *args, **kw) -> Counts:
             "total_bytes": sum(c.coll.values())}
     return Counts(flops=float(c.flops), bytes_accessed=float(c.bytes),
                   collectives=coll, op_bytes=c.op_bytes,
-                  op_calls=c.op_calls, result=result)
+                  op_calls=c.op_calls, result=result, sites=c.sites)
 
 
 def op_byte_profile(counts: Counts, top: int = 15) -> list:

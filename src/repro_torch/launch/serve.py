@@ -105,12 +105,11 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
     On ``mesh`` (a DeviceMesh; every rank of it calls this) each rank
     prefills and decodes its rows of the batch
     (``steps.make_sharded_*_step``), the caches laid out over the mesh by
-    ``launch.sharding.cache_specs``.  The steps compute on whole weights,
-    so each rank keeps the weights it drew from ``seed`` whole (what
-    placing them by their specs and gathering them back would give).
-    Every rank samples the whole batch's next tokens from the gathered
-    logits with the same generator, so the tokens are the unsharded run's
-    wherever the logits are."""
+    ``launch.sharding.cache_specs``, the weights by the reference's
+    serving specs (tensor-parallel only: replicated over the data axes,
+    so no step gathers them).  Every rank samples the whole batch's next
+    tokens from the gathered logits with the same generator, so the
+    tokens are the unsharded run's wherever the logits are."""
     from repro_torch.data import pipeline as dp
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding
@@ -153,6 +152,8 @@ def serve(cfg, batch: int, prompt_len: int, max_new: int, top_k: int = 0,
                                                     with_frontend=wf)
         caches = sharding.place(caches, mesh, sharding.cache_specs(
             mesh, caches, data_axes))
+        params = sharding.place(params, mesh, sharding.param_specs(
+            mesh, params, dp=None))
         rows = sharding.local_rows(mesh, batch, data_axes)
         fe = tuple(f[rows] for f in fe)
         where = sharding.placements(mesh, sharding.batch_spec(

@@ -22,12 +22,14 @@ placements (the counterpart of ``NamedSharding``) and :func:`place` lays a
 tree out by its specs.
 
 How the port computes over this layout (``launch/steps.py``): every leaf
-of the state is a DTensor placed by its spec, but each rank runs the
-plain forward and backward on the whole value of every leaf and on its
-own rows of the batch.  Ranks along the model axis compute the same rows:
-the model axis shards storage only.  The gradients are reduced over the
-data axes onto each leaf's placements, and AdamW runs on the local shards.
-The kernels never see a DTensor.
+of the state is a DTensor placed by its spec.  Each rank runs the forward
+and backward on plain local tensors: its own rows of the batch, and each
+layer's leaves gathered over the data axes only while the layer runs,
+their model-axis shard kept.  Along the model axis each rank computes its
+own heads, FFN columns, experts and vocabulary block, as the reference's
+GSPMD-partitioned step does (``models/shard.py``).  The gradients come
+back averaged over the data axes onto each leaf's shard, and AdamW runs
+on the local shards.  The kernels never see a DTensor.
 """
 from __future__ import annotations
 

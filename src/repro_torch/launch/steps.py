@@ -9,17 +9,21 @@ runs both, as the reference's jitted step does.
 
 Under a mesh (:class:`ShardedTrainStep`, :func:`make_sharded_prefill_step`,
 :func:`make_sharded_decode_step`) the state is sharded and the compute is
-data-parallel.  Every leaf of the parameters, the optimizer state and the
-caches is a DTensor placed by ``launch.sharding``'s spec for it.  Each rank
-gathers the whole value of each parameter and runs the steps above, plain
-tensors only, on its own rows of the batch (and of the caches, with their
-whole heads): ranks along the model axis compute the same rows, so the
-model axis shards storage only.  A gradient is averaged over the data
-axes straight onto its leaf's placements (a reduce-scatter), and AdamW
-runs in place on the local shards, its whole-leaf reductions made whole
-over the ranks.  The kernels never see a DTensor.  On a mesh of one rank
-every collective is the identity, and the steps equal the unsharded ones
-bit for bit.
+data-parallel over the data axes and tensor-parallel over the model axis,
+as the reference's GSPMD-partitioned steps.  Every leaf of the parameters,
+the optimizer state and the caches is a DTensor placed by
+``launch.sharding``'s spec for it.  Each rank runs the steps above on
+plain local tensors: its rows of the batch, its shards of the parameters
+(each leaf gathered over the data axes only while its layer runs, its
+model-axis shard kept: ``shard.gathered``) and of the caches (read and
+written in place, in their stored layout).  Along the model axis each
+rank computes its own heads, FFN columns, experts and vocabulary block
+(``models/shard.py``).  The backward of a layer's gather averages each
+gradient over the data axes straight onto its leaf's shard (a
+reduce-scatter), and AdamW runs in place on the local shards, its
+whole-leaf reductions made whole over the ranks.  The kernels never see a
+DTensor.  On a mesh of one rank every collective is the identity, and the
+steps equal the unsharded ones bit for bit.
 """
 from __future__ import annotations
 
@@ -27,12 +31,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import tree
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
 from repro_torch.models import shard, stacked
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
 
@@ -190,7 +195,7 @@ def shard_reduce(mesh, like) -> adamw.Reduce:
     mesh dims that shard the leaf (sum or max), is the whole leaf's."""
     names = mesh.mesh_dim_names
     spread = {path: [names[i] for i, pl in enumerate(t.placements)
-                     if isinstance(pl, Shard)]
+                     if isinstance(pl, Shard) and mesh.shape[i] > 1]
               for path, t in tree.flatten_with_path(like)}
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -205,6 +210,14 @@ def shard_reduce(mesh, like) -> adamw.Reduce:
 def _in_mesh(mesh) -> shard.mesh_axes:
     return shard.mesh_axes(mesh_lib.data_axes(mesh),
                            mesh_lib.model_axis(mesh), mesh)
+
+
+def _layout(mesh, params) -> Dict:
+    """{path: ``shard.data_plan``} of every DTensor leaf of ``params``."""
+    axes = mesh_lib.data_axes(mesh)
+    return {path: shard.data_plan(mesh, t, axes)
+            for path, t in tree.flatten_with_path(params)
+            if isinstance(t, DTensor)}
 
 
 class ShardedTrainStep:
@@ -222,26 +235,22 @@ class ShardedTrainStep:
         self.step = TrainStep(cfg, ocfg, remat=remat, accum=accum,
                               accum_dtype=accum_dtype)
         self.mesh = mesh
-        data = mesh_lib.data_axes(mesh)
-        # a rank's gradient: its rows' average, the same along the model
-        # axis
-        self.partial = [Partial("avg") if name in data else Replicate()
-                        for name in mesh.mesh_dim_names]
 
     def grads(self, params, tokens, labels, frontend=None):
         """The forward and backward half: (grads, loss, metrics), the grads
-        DTensors placed as the params are; nothing is changed."""
-        full = tree.map_with_path(lambda _, t: whole(t), params)
-        with _in_mesh(self.mesh):
+        DTensors placed as the params are; nothing is changed.  Each leaf
+        is gathered over the data axes where its layer runs, and its
+        gradient comes back averaged over them onto its own shard."""
+        with _in_mesh(self.mesh), shard.placed(_layout(self.mesh, params)):
             g, loss, metrics = self.step.grads(
-                full, _local(tokens), _local(labels), _local(frontend))
+                _locals(params), _local(tokens), _local(labels),
+                _local(frontend))
             loss = shard.data_mean(loss)
             metrics = dict(metrics, nll=shard.data_mean(metrics["nll"]))
-        del full
         g = tree.map_with_path(
             lambda path, p: DTensor.from_local(
-                tree.at(g, path), self.mesh, self.partial, run_check=False
-            ).redistribute(self.mesh, p.placements), params)
+                tree.at(g, path), self.mesh, p.placements, run_check=False),
+            params)
         return g, loss, metrics
 
     def apply(self, params, opt_state: adamw.OptState, grads, loss, metrics):
@@ -296,28 +305,31 @@ def init_sharded_opt_state(params, ocfg: adamw.AdamWConfig, mesh
                                              run_check=False))
 
 
-def _serving_step(mesh, fn):
-    """``fn(params, caches, *rows)`` run on this rank: the whole params,
-    the rank's rows of the caches with their whole heads (the model axis's
-    placement is gathered for the step and restored after) and of the
-    other inputs.  Returns (logits of the rank's rows, caches)."""
+def _seq_sharded(mesh, caches) -> bool:
+    """Whether the model axis shards the caches' sequence dim
+    (``sharding.cache_specs(seq_shard=True)``)."""
     model = list(mesh.mesh_dim_names).index(mesh_lib.model_axis(mesh))
+    for path, c in tree.flatten_with_path(caches):
+        pl = c.placements[model]
+        seq = {"k": 3, "v": 3, "c_kv": 2, "k_rope": 2}.get(path[-1])
+        if isinstance(pl, Shard) and seq and pl.dim == c.dim() - seq:
+            return True
+    return False
 
-    def rows(c):
-        where = list(c.placements)
-        where[model] = Replicate()
-        return where
+
+def _serving_step(mesh, cfg: ArchConfig, fn):
+    """``fn(params, caches, *rows)`` run on this rank's local shards: the
+    params gathered over the data axes layer by layer, the caches read and
+    written in place in their stored layout, this rank's rows of the other
+    inputs.  Returns (the last position's logits of the rank's rows over
+    the whole vocabulary (B, 1, V), caches)."""
 
     def step(params, caches, *inputs):
-        full = tree.map_with_path(lambda _, t: whole(t), params)
-        mine = tree.map_with_path(
-            lambda _, c: _local(c.redistribute(mesh, rows(c))), caches)
-        with _in_mesh(mesh):
-            logits, mine = fn(full, mine, *map(_local, inputs))
-        caches = tree.map_with_path(
-            lambda path, c: DTensor.from_local(
-                tree.at(mine, path), mesh, rows(c), run_check=False
-            ).redistribute(mesh, c.placements), caches)
+        with _in_mesh(mesh), shard.placed(_layout(mesh, params),
+                                          _seq_sharded(mesh, caches)):
+            logits, _ = fn(_locals(params), _locals(caches),
+                           *map(_local, inputs))
+            logits = T.last_logits(logits, cfg.vocab)
         return logits, caches
 
     return step
@@ -328,9 +340,10 @@ def make_sharded_prefill_step(cfg: ArchConfig, mesh,
     """(params, tokens, caches[, frontend]) -> (logits, caches) over
     ``mesh``: the caches DTensors placed by ``sharding.cache_specs``, the
     tokens (and frontend) this rank's rows or DTensors of the whole batch,
-    the logits this rank's rows."""
+    the logits the last position's (B, 1, V) of this rank's rows."""
     prefill = make_prefill_step(cfg, with_frontend=True)
-    step = _serving_step(mesh, lambda p, c, t, fe: prefill(p, t, c, fe))
+    step = _serving_step(mesh, cfg,
+                         lambda p, c, t, fe: prefill(p, t, c, fe))
 
     def run(params, tokens, caches, frontend=None):
         return step(params, caches, tokens, frontend)
@@ -345,7 +358,7 @@ def make_sharded_decode_step(cfg: ArchConfig, mesh,
     """(params, token (B,1), pos (B,), caches[, frontend]) -> (logits,
     caches) over ``mesh``, laid out as :func:`make_sharded_prefill_step`'s."""
     decode = make_decode_step(cfg, with_frontend=True)
-    step = _serving_step(mesh,
+    step = _serving_step(mesh, cfg,
                          lambda p, c, t, z, fe: decode(p, t, z, c, fe))
 
     def run(params, token, pos, caches, frontend=None):

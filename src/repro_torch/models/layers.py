@@ -9,8 +9,15 @@ cross-attention over frontend embeddings (Llama-3.2-Vision, MusicGen), MLA
 with weight absorption for decode (DeepSeek-V2) and its latent cache,
 SwiGLU/GeGLU MLPs, the embedding and the LM head.
 
-The reference's ``shard.constrain`` calls are GSPMD sharding hints; a
-one-card path has no mesh, so they are left out here.
+Under a mesh (``launch/steps.py``) each layer computes tensor-parallel
+over the model axis where the reference's ``shard.constrain`` calls put
+the model axis (``models/shard.py``): the heads of ``act_heads`` (blocks
+of ceil(H / tp), as GSPMD pads), the KV heads of ``act_kv_heads`` (or,
+where the axis does not divide them, their ``head_dim``, gathered for the
+product), the FFN columns of ``act_ff``, the vocabulary of
+``act_vocab``; the row-parallel output products are summed to
+``act_embed``.  Without a mesh, or on one rank, every collective is the
+identity and the layers are the one-card ones.
 
 Products whose reference asks for float32 out of bfloat16 operands (the
 attention scores, MLA's latent scores, the LM head) go through
@@ -20,11 +27,12 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
 
 
@@ -272,33 +280,114 @@ def _write_rows(cache: torch.Tensor, update: torch.Tensor,
     cache[torch.arange(B, device=dev)[:, None], cols] = update
 
 
+def _cached(cache: torch.Tensor, update: torch.Tensor,
+            start: torch.Tensor) -> torch.Tensor:
+    """Write this step's ``update`` (B, T, ..., w) into a cache leaf at the
+    rows' positions and return the whole cache the attention reads.  The
+    leaf holds all of it, or (under a mesh) this rank's even block of the
+    last dim (the ``head_dim`` fallback, MLA's latent), written from
+    ``update``'s block and gathered for the read, or this rank's block of
+    the sequence (``seq_shard``), gathered, written and put back."""
+    if shard.seq_cache():
+        _, me, _ = shard.model_group()
+        whole = shard.gather(cache, 1)
+        _write_rows(whole, update, start)
+        n = cache.shape[1]
+        cache.copy_(whole.narrow(1, me * n, n))
+        return whole
+    w = cache.shape[-1]
+    if w == update.shape[-1]:
+        _write_rows(cache, update, start)
+        return cache
+    _, me, _ = shard.model_group()
+    _write_rows(cache, update.narrow(-1, me * w, w), start)
+    return shard.gather(cache, -1)
+
+
+def _kv_parts(cfg: ArchConfig, lay: Optional[int], size: int):
+    """Each rank's columns of ``wk`` / ``wv`` (KV heads of hd) for the KV
+    layout ``lay``: its heads (2), its block of every head's ``head_dim``
+    (3), or all of them (None)."""
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    if lay == 2:
+        return shard.spans(shard.split(KV, size), hd)
+    if lay == 3:
+        return [[(j * hd + a, j * hd + b) for j in range(KV)]
+                for a, b in shard.split(hd, size)]
+    return [[(0, KV * hd)]] * size
+
+
+def _own_kv(k: torch.Tensor, heads: Tuple[int, int], n_heads: int
+            ) -> torch.Tensor:
+    """The KV heads (B, S, KV, hd) that this rank's query heads read, one
+    a query head: the grouped expansion of :func:`_sdpa`, for a block of
+    the heads."""
+    rep = n_heads // k.shape[2]
+    sel = torch.arange(heads[0], heads[1], device=k.device) // rep
+    return k.index_select(2, sel)
+
+
+def _project_qkv(params: Dict, x: torch.Tensor, kv_in: torch.Tensor,
+                 cfg: ArchConfig, cached: bool):
+    """This rank's query heads (B, T, Hl, hd) and the keys and values (B,
+    S, ., hd) in the ``act_kv_heads`` layout: its KV heads (layout 2), or
+    its block of every KV head's ``head_dim`` (3), gathered over the model
+    axis (the head norm and RoPE read all of it), or all of them (None).
+    Returns (q, k, v, layout, this rank's block of query heads)."""
+    B, T, _ = x.shape
+    S = kv_in.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    _, me, size = shard.model_group()
+    heads = shard.split(H, size)
+    lay = shard.model_dim((B, T, KV, hd), "act_kv_heads")
+    if cached and shard.seq_cache():
+        lay = None                       # the cache holds every head
+    h0, h1 = heads[me]
+    q = x @ shard.take(params["wq"], -1, H * hd, shard.spans(heads, hd))
+    q = q.reshape(B, T, h1 - h0, hd)
+    kv_cols = _kv_parts(cfg, lay, size)
+    k = kv_in @ shard.take(params["wk"], -1, KV * hd, kv_cols)
+    v = kv_in @ shard.take(params["wv"], -1, KV * hd, kv_cols)
+    if lay == 3:
+        k = shard.gather(k.reshape(B, S, KV, -1), 3)
+        v = shard.gather(v.reshape(B, S, KV, -1), 3)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    return q, k, v, lay, heads[me]
+
+
 def apply_attn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
                positions: torch.Tensor, cache: Optional[Dict] = None
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention over x (B, T, d) at ``positions`` (B, T).  With a
     cache: this step's k/v are written into it in place at the rows'
     positions, and the queries attend over the cache (the returned cache
-    is the same dict)."""
+    is the same dict).  Under a mesh: this rank's heads, ``wo``'s rows
+    summed over the model axis."""
     B, T, d = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"]).reshape(B, T, H, hd)
-    k = (x @ params["wk"]).reshape(B, T, KV, hd)
-    v = (x @ params["wv"]).reshape(B, T, KV, hd)
+    H, hd = cfg.n_heads, cfg.hd
+    x = shard.enter(x)
+    q, k, v, lay, heads = _project_qkv(params, x, x, cfg, cache is not None)
     if cfg.qk_norm:
-        q = _head_rms(q, params["q_norm"])
-        k = _head_rms(k, params["k_norm"])
+        q = _head_rms(q, shard.enter(params["q_norm"]))
+        k = _head_rms(k, shard.enter(params["k_norm"]))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
         idx = positions[:, 0]
-        _write_rows(cache["k"], k, idx)
-        _write_rows(cache["v"], v, idx)
-        out = _sdpa(q, cache["k"], cache["v"], causal=True, q_pos=positions,
-                    kv_len=idx + T, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+        k = _cached(cache["k"], k, idx)
+        v = _cached(cache["v"], v, idx)
+        kv_len = idx + T
     else:
-        out = _sdpa(q, k, v, causal=True, q_pos=positions,
-                    impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    return out.reshape(B, T, H * hd) @ params["wo"], cache
+        kv_len = None
+    if lay != 2 and shard.model_size() > 1:
+        k, v = _own_kv(k, heads, H), _own_kv(v, heads, H)
+    out = _sdpa(q, k, v, causal=True, q_pos=positions, kv_len=kv_len,
+                impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    wo = shard.take(params["wo"], -2, H * hd,
+                    shard.spans(shard.split(H, shard.model_size()), hd))
+    out = out.reshape(B, T, (heads[1] - heads[0]) * hd)
+    return shard.reduce(out @ wo), cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,
@@ -334,14 +423,19 @@ def init_xattn(cfg: ArchConfig, gen, device) -> Dict:
 def apply_xattn(params: Dict, x: torch.Tensor, enc: torch.Tensor,
                 cfg: ArchConfig) -> torch.Tensor:
     """x: (B,T,d) text stream; enc: (B,F,frontend_dim) frontend embeddings.
-    Non-causal GQA over the F frontend tokens, scaled by tanh(gate)."""
+    Non-causal GQA over the F frontend tokens, scaled by tanh(gate); under
+    a mesh, tensor-parallel as :func:`apply_attn`."""
     B, T, d = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ params["wq"]).reshape(B, T, H, hd)
-    k = (enc @ params["wk"]).reshape(B, enc.shape[1], KV, hd)
-    v = (enc @ params["wv"]).reshape(B, enc.shape[1], KV, hd)
+    H, hd = cfg.n_heads, cfg.hd
+    q, k, v, lay, heads = _project_qkv(params, shard.enter(x),
+                                       shard.enter(enc), cfg, False)
+    if lay != 2 and shard.model_size() > 1:
+        k, v = _own_kv(k, heads, H), _own_kv(v, heads, H)
     out = _sdpa(q, k, v, causal=False)
-    out = out.reshape(B, T, H * hd) @ params["wo"]
+    wo = shard.take(params["wo"], -2, H * hd,
+                    shard.spans(shard.split(H, shard.model_size()), hd))
+    out = out.reshape(B, T, (heads[1] - heads[0]) * hd)
+    out = shard.reduce(out @ wo)
     return torch.tanh(params["gate"]).to(x.dtype) * out
 
 
@@ -373,16 +467,22 @@ def init_mla(cfg: ArchConfig, gen, device) -> Dict:
 
 
 def _mla_q(params: Dict, x: torch.Tensor, cfg: ArchConfig,
-           positions: torch.Tensor):
-    """(q_nope (B,T,H,dn), q_rope (B,T,H,dr) rotated)."""
+           positions: torch.Tensor, heads: List[Tuple[int, int]]):
+    """(q_nope (B,T,Hl,dn), q_rope (B,T,Hl,dr) rotated) of this rank's
+    heads; the low-rank query's latent is replicated over the model axis
+    and enters the rank's heads."""
     B, T, _ = x.shape
     H = cfg.n_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cols = shard.spans(heads, dn + dr)
     if cfg.q_lora_rank:
-        ql = _head_rms(x @ params["wq_a"], params["q_norm"])
-        q = (ql @ params["wq_b"]).reshape(B, T, H, dn + dr)
+        ql = shard.enter(_head_rms(x @ params["wq_a"], params["q_norm"]))
+        q = ql @ shard.take(params["wq_b"], -1, H * (dn + dr), cols)
     else:
-        q = (x @ params["wq"]).reshape(B, T, H, dn + dr)
+        q = shard.enter(x) @ shard.take(params["wq"], -1, H * (dn + dr),
+                                        cols)
+    _, me, _ = shard.model_group()
+    q = q.reshape(B, T, heads[me][1] - heads[me][0], dn + dr)
     return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -396,48 +496,57 @@ def apply_mla(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     place, and the queries attend in latent space with the key and value
     up-projections absorbed into them (the returned cache is the same
     dict).  Both score products come out in float32; ``q_lat``, ``o_lat``
-    and the probabilities are in the compute dtype, as the reference's."""
+    and the probabilities are in the compute dtype, as the reference's.
+    Under a mesh: this rank's heads of ``wq_b`` / ``wk_b`` / ``wv_b``, the
+    latent (``wkv_a``, replicated) computed by every rank, ``wo``'s rows
+    summed over the model axis; a cache sharded on the latent is gathered
+    for the read."""
     B, T, d = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     L = cfg.kv_lora_rank
-    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    heads = shard.split(H, shard.model_size())
+    _, me, _ = shard.model_group()
+    Hl = heads[me][1] - heads[me][0]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, heads)
 
     kv = x @ params["wkv_a"]                                  # (B,T,L+dr)
     c_kv = _head_rms(kv[..., :L], params["kv_norm"])          # latent
     k_rope = rope(kv[..., L:][:, :, None, :], positions, cfg.rope_theta)
+    wk_b = shard.take(params["wk_b"], -1, H * dn, shard.spans(heads, dn))
+    wv_b = shard.take(params["wv_b"], -1, H * dv, shard.spans(heads, dv))
+    wo = shard.take(params["wo"], -2, H * dv, shard.spans(heads, dv))
 
     if cache is None:
-        k_nope = (c_kv @ params["wk_b"]).reshape(B, T, H, dn)
-        v = (c_kv @ params["wv_b"]).reshape(B, T, H, dv)
-        k = torch.cat([k_nope, k_rope.expand(B, T, H, dr)], dim=-1)
+        c = shard.enter(c_kv)
+        k_nope = (c @ wk_b).reshape(B, T, Hl, dn)
+        v = (c @ wv_b).reshape(B, T, Hl, dv)
+        k = torch.cat([k_nope, shard.enter(k_rope).expand(B, T, Hl, dr)],
+                      dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = _sdpa(q, k, v, causal=True, q_pos=positions,
                     impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-        return out.reshape(B, T, H * dv) @ params["wo"], None
+        return shard.reduce(out.reshape(B, T, Hl * dv) @ wo), None
 
     # ---- decode: absorbed attention in latent space -----------------
     idx = positions[:, 0]
-    _write_rows(cache["c_kv"], c_kv, idx)
-    _write_rows(cache["k_rope"], k_rope[:, :, 0, :], idx)
-    cc, cr = cache["c_kv"], cache["k_rope"]                   # (B,S,L|dr)
+    cc = _cached(cache["c_kv"], c_kv, idx)                    # (B,S,L)
+    cr = _cached(cache["k_rope"], k_rope[:, :, 0, :], idx)    # (B,S,dr)
     S = cc.shape[1]
-    # absorb W_uk into q: q_lat (B,T,H,L)
-    q_lat = torch.einsum("bthn,lhn->bthl", q_nope,
-                         params["wk_b"].reshape(L, H, dn))
-    # (B, H*T, L|dr) @ (B, L|dr, S): the two score products in float32
-    scores = (matmul_f32(q_lat.permute(0, 2, 1, 3).reshape(B, H * T, L),
+    # absorb W_uk into q: q_lat (B,T,Hl,L)
+    q_lat = torch.einsum("bthn,lhn->bthl", q_nope, wk_b.reshape(L, Hl, dn))
+    # (B, Hl*T, L|dr) @ (B, L|dr, S): the two score products in float32
+    scores = (matmul_f32(q_lat.permute(0, 2, 1, 3).reshape(B, Hl * T, L),
                          cc.transpose(1, 2))
-              + matmul_f32(q_rope.permute(0, 2, 1, 3).reshape(B, H * T, dr),
-                           cr.transpose(1, 2))).reshape(B, H, T, S)
+              + matmul_f32(q_rope.permute(0, 2, 1, 3).reshape(B, Hl * T, dr),
+                           cr.transpose(1, 2))).reshape(B, Hl, T, S)
     scores = scores / math.sqrt(dn + dr)
     kp = torch.arange(S, device=x.device)[None, :]
     scores = torch.where(_causal_mask(positions, kp, idx + T), scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o_lat = (probs.reshape(B, H * T, S) @ cc).reshape(B, H, T, L)
-    out = torch.einsum("bhtl,lhv->bthv", o_lat,
-                       params["wv_b"].reshape(L, H, dv))
-    return out.reshape(B, T, H * dv) @ params["wo"], cache
+    o_lat = (probs.reshape(B, Hl * T, S) @ cc).reshape(B, Hl, T, L)
+    out = torch.einsum("bhtl,lhv->bthv", o_lat, wv_b.reshape(L, Hl, dv))
+    return shard.reduce(out.reshape(B, T, Hl * dv) @ wo), cache
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, device,
@@ -472,10 +581,25 @@ def glu_act(gate: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return F.gelu(gate, approximate="tanh")
 
 
-def apply_mlp(params: Dict, x: torch.Tensor, cfg: ArchConfig
-              ) -> torch.Tensor:
-    gate, up = (x @ params["wi"]).chunk(2, dim=-1)
-    return (glu_act(gate, cfg) * up) @ params["wo"]
+def mlp_partial(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+                d_ff: Optional[int] = None) -> torch.Tensor:
+    """The GLU MLP on this rank's FFN columns (``act_ff``): ``wi``'s gate
+    and up blocks of those columns and ``wo``'s rows, a partial sum over
+    the model axis.  ``x`` has entered the model axis."""
+    ff = d_ff or cfg.d_ff
+    cols = shard.split(ff, shard.model_size())
+    wi = shard.take(params["wi"], -1, 2 * ff,
+                    [[(a, b), (ff + a, ff + b)] for a, b in cols])
+    gate, up = (x @ wi).chunk(2, dim=-1)
+    wo = shard.take(params["wo"], -2, ff, [[c] for c in cols])
+    return (glu_act(gate, cfg) * up) @ wo
+
+
+def apply_mlp(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The GLU MLP of width ``d_ff`` (the config's by default); under a
+    mesh tensor-parallel over its columns (:func:`mlp_partial`)."""
+    return shard.reduce(mlp_partial(params, shard.enter(x), cfg, d_ff))
 
 
 # ---------------------------------------------------------------------------
@@ -491,10 +615,38 @@ def init_embed(cfg: ArchConfig, gen, device) -> Dict:
     }
 
 
-def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens.long()]
+def embed_tokens(params: Dict, tokens: torch.Tensor,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """The rows of ``tok`` (vocab ``vocab``, the leaf's own rows by
+    default).  Under a mesh whose model axis shards the vocabulary, each
+    rank looks up the tokens in its block of rows, zeroes the others, and
+    the ranks' rows are summed (exactly: one term is nonzero)."""
+    tok = params["tok"]
+    n = tok.shape[0]
+    if vocab is None or n == vocab:
+        return tok[tokens.long()]
+    _, me, _ = shard.model_group()
+    t = tokens.long() - me * n
+    mine = (t >= 0) & (t < n)
+    rows = tok[t.clamp(0, n - 1)]
+    return shard.reduce(torch.where(mine[..., None], rows,
+                                    torch.zeros((), dtype=rows.dtype,
+                                                device=rows.device)))
 
 
-def lm_logits(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """(B, T, V) float32 logits of x (B, T, d) through the head."""
-    return matmul_f32(x, params["head"])
+def vocab_blocks(vocab: int) -> shard.Parts:
+    """Each model rank's block of the vocabulary (``act_vocab``: blocks of
+    ceil(V / tp), as GSPMD pads a vocabulary the axis does not divide)."""
+    return [[b] for b in shard.split(vocab, shard.model_size())]
+
+
+def lm_logits(params: Dict, x: torch.Tensor, vocab: Optional[int] = None
+              ) -> torch.Tensor:
+    """(B, T, V) float32 logits of x (B, T, d) through the head (vocab
+    ``vocab``, the leaf's own columns by default); under a mesh, this
+    rank's block of the vocabulary (:func:`vocab_blocks`)."""
+    head = params["head"]
+    if vocab is None:
+        return matmul_f32(x, head)
+    return matmul_f32(shard.enter(x),
+                      shard.take(head, -1, vocab, vocab_blocks(vocab)))

@@ -15,6 +15,16 @@ leaves in a bfloat16 model, ``dt`` and the SSM state are float32.  Where
 the reference's ``einsum`` promotes bfloat16 operands against a float32
 one, the port widens them first (``torch.einsum`` does not promote).
 
+Under a mesh the block is tensor-parallel over the model axis: each
+rank takes its heads (blocks of ceil(H / tp)) of ``in_proj``'s z, x and
+dt columns (``[z | xBC | dt]``'s column shard is not head-aligned, so
+:func:`repro_torch.models.shard.take` re-lays it with one all-to-all),
+every rank computes the one group's B and C, the gated norm's mean square
+is summed over the ranks (it spans all of ``d_inner``), and ``out_proj``
+is row-parallel, summed to ``act_embed``.  The caches stay in their
+stored layout (``ssm`` on heads, ``conv`` on its channels); a step reads
+and writes back this rank's heads and channels.
+
 The cached branch is written for one token, as the reference's: given a
 cache and T > 1 tokens, only token 0 enters the SSM state and its output
 is broadcast against every position's gate, while the conv state advances
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _init
 
@@ -61,12 +72,27 @@ def init_ssm(cfg: ArchConfig, gen, device) -> Dict:
     }
 
 
-def _split_proj(proj: torch.Tensor, cfg: ArchConfig):
+def _heads(cfg: ArchConfig):
+    """(this rank's block of heads, every rank's blocks)."""
+    _, me, size = shard.model_group()
+    blocks = shard.split(_dims(cfg)[1], size)
+    return blocks[me], blocks
+
+
+def _proj_parts(cfg: ArchConfig, blocks) -> shard.Parts:
+    """Each rank's columns of ``in_proj`` ([z | x | B | C | dt]): its heads'
+    z, x and dt columns, and the one group's B and C."""
     d_in, H, P, S = _dims(cfg)
-    z = proj[..., :d_in]
-    xBC = proj[..., d_in:d_in + d_in + 2 * S]
-    dt = proj[..., d_in + d_in + 2 * S:]
-    return z, xBC, dt
+    return [[(a * P, b * P), (d_in + a * P, d_in + b * P),
+             (2 * d_in, 2 * d_in + 2 * S),
+             (2 * d_in + 2 * S + a, 2 * d_in + 2 * S + b)]
+            for a, b in blocks]
+
+
+def _conv_parts(cfg: ArchConfig, blocks) -> shard.Parts:
+    """Each rank's conv channels ([x | B | C]): its heads' x, and B, C."""
+    d_in, H, P, S = _dims(cfg)
+    return [[(a * P, b * P), (d_in, d_in + 2 * S)] for a, b in blocks]
 
 
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -85,26 +111,42 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b), xp[:, -(K - 1):]
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor
-                ) -> torch.Tensor:
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                d_in: int) -> torch.Tensor:
+    """RMS norm of y * silu(z) over all ``d_in`` channels: under a mesh
+    each rank holds its heads' channels, and the sum of squares is summed
+    over the model axis."""
     yf = y.float() * F.silu(z.float())
-    rms = torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + 1e-6)
+    if shard.model_size() == 1:
+        ms = (yf * yf).mean(dim=-1, keepdim=True)
+    else:
+        ms = shard.sum_ranks((yf * yf).sum(dim=-1, keepdim=True)) / d_in
+    rms = torch.rsqrt(ms + 1e-6)
     return (yf * rms).to(y.dtype) * w.to(y.dtype)
 
 
 def _conv_inputs(params: Dict, x: torch.Tensor, cfg: ArchConfig,
                  state: Optional[torch.Tensor] = None):
-    """The block's projections: (z, xs (B,L,H,P), B (B,L,S), C (B,L,S),
-    dt (B,L,H) float32, A (H,) float32, the conv's new state)."""
+    """The block's projections for this rank's Hl heads: (z, xs
+    (B,L,Hl,P), B (B,L,S), C (B,L,S), dt (B,L,Hl) float32, A (Hl,)
+    float32, the conv's new state over this rank's channels)."""
     d_in, H, P, S = _dims(cfg)
     Bb, L, _ = x.shape
-    z, xBC, dt = _split_proj(x @ params["in_proj"], cfg)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-    xBC, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"],
-                                   state)
-    xs = xBC[..., :d_in].reshape(Bb, L, H, P)
-    return (z, xs, xBC[..., d_in:d_in + S], xBC[..., d_in + S:], dt, A,
+    (h0, h1), blocks = _heads(cfg)
+    dl = (h1 - h0) * P
+    heads = [[blk] for blk in blocks]
+    proj = x @ shard.take(params["in_proj"], -1, 2 * d_in + 2 * S + H,
+                          _proj_parts(cfg, blocks))
+    z, xBC, dt = proj[..., :dl], proj[..., dl:2 * dl + 2 * S], \
+        proj[..., 2 * dl + 2 * S:]
+    dt = F.softplus(dt.float() + shard.take(params["dt_bias"], 0, H, heads))
+    A = -torch.exp(shard.take(params["A_log"], 0, H, heads))
+    cp = _conv_parts(cfg, blocks)
+    xBC, conv_state = _causal_conv(
+        xBC, shard.take(params["conv_w"], -1, d_in + 2 * S, cp),
+        shard.take(params["conv_b"], 0, d_in + 2 * S, cp), state)
+    xs = xBC[..., :dl].reshape(Bb, L, h1 - h0, P)
+    return (z, xs, xBC[..., dl:dl + S], xBC[..., dl + S:], dt, A,
             conv_state)
 
 
@@ -113,26 +155,38 @@ def apply_ssm(params: Dict, x: torch.Tensor, cfg: ArchConfig,
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, L, d_model).  A cache means single-step decode: its conv and
     SSM states are written in place (the returned cache is the same dict);
-    with L > 1 only token 0 enters the SSM state, as the reference's."""
-    d_in, H, P, S = _dims(cfg)
+    with L > 1 only token 0 enters the SSM state, as the reference's.
+    Under a mesh: this rank's heads, ``out_proj``'s rows summed over the
+    model axis."""
+    d_in, n_heads, P, S = _dims(cfg)
     Bb, L, _ = x.shape
+    (h0, h1), blocks = _heads(cfg)
+    H = h1 - h0                                   # this rank's heads
+    heads = [[blk] for blk in blocks]
+    x = shard.enter(x)
+    D = shard.take(params["D"], 0, n_heads, heads)
+    gate_norm = shard.take(params["gate_norm"], 0, d_in,
+                           shard.spans(blocks, P))
+    out_proj = shard.take(params["out_proj"], -2, d_in,
+                          shard.spans(blocks, P))
 
     if cache is not None:
+        cp = _conv_parts(cfg, blocks)
         z, xs, Bmat, Cmat, dt, A, conv_state = _conv_inputs(
-            params, x, cfg, cache["conv"])
-        h = cache["ssm"]                                      # (B,H,P,S)
+            params, x, cfg, shard.held(cache["conv"], -1, d_in + 2 * S, cp))
+        h = shard.held(cache["ssm"], -3, n_heads, heads)      # (B,H,P,S)
         # single step (L == 1)
         a = torch.exp(A[None, :] * dt[:, 0])                  # (B,H)
         dbx = torch.einsum("bhp,bs,bh->bhps", xs[:, 0].float(),
                            Bmat[:, 0].float(), dt[:, 0])
         h = h * a[..., None, None] + dbx
         y = torch.einsum("bhps,bs->bhp", h, Cmat[:, 0].float())
-        y = y + params["D"][None, :, None] * xs[:, 0]
-        y = y.reshape(Bb, 1, d_in).to(x.dtype)
-        y = _gated_norm(y, z, params["gate_norm"])
-        cache["conv"].copy_(conv_state)
-        cache["ssm"].copy_(h)
-        return y @ params["out_proj"], cache
+        y = y + D[None, :, None] * xs[:, 0]
+        y = y.reshape(Bb, 1, H * P).to(x.dtype)
+        y = _gated_norm(y, z, gate_norm, d_in)
+        shard.store(cache["conv"], -1, d_in + 2 * S, cp, conv_state)
+        shard.store(cache["ssm"], -3, n_heads, heads, h)
+        return shard.reduce(y @ out_proj), cache
 
     z, xs, Bmat, Cmat, dt, A, _ = _conv_inputs(params, x, cfg)
 
@@ -172,10 +226,10 @@ def apply_ssm(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     y_inter = torch.einsum("bnis,bnih,bnhps->bnihp", C_c.float(),
                            torch.exp(cum), h_in)
     y = (y_intra + y_inter).reshape(Bb, L, H, P)
-    y = y + params["D"][None, None, :, None] * xs
-    y = y.reshape(Bb, L, d_in).to(x.dtype)
-    y = _gated_norm(y, z, params["gate_norm"])
-    return y @ params["out_proj"], None
+    y = y + D[None, None, :, None] * xs
+    y = y.reshape(Bb, L, H * P).to(x.dtype)
+    y = _gated_norm(y, z, gate_norm, d_in)
+    return shard.reduce(y @ out_proj), None
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, device,
@@ -208,5 +262,5 @@ def apply_ssm_ref(params: Dict, x: torch.Tensor, cfg: ArchConfig
         ys.append(torch.einsum("bhps,bs->bhp", h, Cmat[:, t].float()))
     y = torch.stack(ys, dim=1) + params["D"][None, None, :, None] * xs
     y = y.reshape(Bb, L, d_in).to(x.dtype)
-    y = _gated_norm(y, z, params["gate_norm"])
+    y = _gated_norm(y, z, params["gate_norm"], d_in)
     return y @ params["out_proj"]

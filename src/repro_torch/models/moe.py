@@ -15,6 +15,17 @@ the port of ``repro.models.moe``.
   whose capacity is per batch row, is unchanged, while the sort
   dispatch's capacity counts the rank's tokens only.
 
+* **Tensor parallelism over the model axis** (under a mesh): every rank
+  routes the same rows (``moe/router`` is replicated over it), so the
+  router kernels see plain local tensors as on one card.  Where the model
+  axis divides the experts (``act_dispatch`` / ``act_expert_g`` on E:
+  deepseek-v2's 160 on 16), each rank runs its E / tp experts on their
+  slots (expert parallel); where it does not (qwen2-moe's 60 on 16, the
+  ``_MOE_WI_FALLBACK`` specs), each rank runs every expert on its block
+  of the FFN columns.  Either way each rank's combine is a partial sum,
+  added to the shared experts' (``layers.mlp_partial``) and summed over
+  the model axis once.
+
 Router weights and gating math run in float32.
 """
 from __future__ import annotations
@@ -28,7 +39,8 @@ from repro_torch import sort as sort_engine
 from repro_torch.core import radix_select as rs
 from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _init, apply_mlp, glu_act, init_mlp
+from repro_torch.models.layers import (_init, apply_mlp, glu_act, init_mlp,
+                                       mlp_partial)
 
 # router_impl -> the port's topk engine; the reference's names map onto
 # the port's, and the port's own names stand for themselves
@@ -124,15 +136,33 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     ) / (B * T * k))
     aux = E * (me * ce).sum()
 
+    x_in, gates = shard.enter(x), shard.enter(gates)
     if dispatch == "sort":
-        y = _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor)
+        y = _sort_dispatch(params, x_in, cfg, gates, eidx, capacity_factor)
     elif dispatch == "einsum":
-        y = _einsum_dispatch(params, x, cfg, gates, eidx, capacity_factor)
+        y = _einsum_dispatch(params, x_in, cfg, gates, eidx, capacity_factor)
     else:
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if cfg.n_shared_experts:
-        y = y + apply_mlp(params["shared"], x, cfg)
-    return y, aux
+        y = y + mlp_partial(params["shared"], x_in, cfg,
+                            d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+    return shard.reduce(y), aux
+
+
+def _expert_block(params, cfg: ArchConfig):
+    """(first expert, wi, wo) of this rank's share of the routed experts:
+    its block of experts (expert parallel, the banks' stored shard), or
+    every expert on its block of the FFN columns (``wi``'s gate and up
+    blocks, ``wo``'s rows), or all of them on one rank."""
+    E, ff = cfg.n_routed_experts, cfg.d_ff_expert
+    wi, wo = params["wi"], params["wo"]
+    _, me, size = shard.model_group()
+    if wi.shape[0] < E:
+        return me * wi.shape[0], wi, wo
+    cols = shard.split(ff, size)
+    return 0, shard.take(wi, -1, 2 * ff,
+                         [[(a, b), (ff + a, ff + b)] for a, b in cols]), \
+        shard.take(wo, -2, ff, [[c] for c in cols])
 
 
 def _experts(params, xbuf: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -147,15 +177,19 @@ def _einsum_dispatch(params, x, cfg, gates, eidx, capacity_factor):
     E = cfg.n_routed_experts
     C = _capacity(T, cfg.moe_top_k, E, capacity_factor)   # per batch row
     dt = x.dtype
+    e0, wi, wo = _expert_block(params, cfg)
+    El = wi.shape[0]
     oh_e, pos_tk, keep = dispatch_slots(eidx, E, C)
     oh_c = _one_hot(pos_tk.to(torch.int32), C) * keep[..., None]
+    if El < E:                          # this rank's experts' slots
+        oh_e = oh_e[..., e0:e0 + El]
     disp = torch.einsum("btke,btkc->btec", oh_e, oh_c).to(dt)
     comb = torch.einsum("btke,btkc,btk->btec", oh_e, oh_c, gates).to(dt)
     # the group (= batch row) dim stays on the expert buffers: capacity
     # slots are per group, so (b, e, c) never collides across rows
-    xbuf = torch.einsum("btec,btd->ebcd", disp, x)         # (E,B,C,d)
-    ybuf = _experts(params, xbuf.reshape(E, B * C, d), cfg)
-    return torch.einsum("btec,ebcd->btd", comb, ybuf.reshape(E, B, C, d))
+    xbuf = torch.einsum("btec,btd->ebcd", disp, x)         # (El,B,C,d)
+    ybuf = _experts({"wi": wi, "wo": wo}, xbuf.reshape(El, B * C, d), cfg)
+    return torch.einsum("btec,ebcd->btd", comb, ybuf.reshape(El, B, C, d))
 
 
 def _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor):
@@ -165,6 +199,8 @@ def _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor):
     dev = x.device
     xt = x.reshape(n, d)
     C = _capacity(n, k, E, capacity_factor)
+    e0, wi, wo = _expert_block(params, cfg)
+    El = wi.shape[0]
     flat_e = eidx.reshape(-1).to(torch.int32)                     # (n*k,)
     flat_g = gates.reshape(-1)
     flat_t = torch.arange(n, device=dev).repeat_interleave(k)
@@ -178,11 +214,14 @@ def _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor):
                        ).scatter_reduce(0, se, pos, "amin")
     slot = pos - first[se]
     keep = slot < C
-    # expert-major buffers (E, C, ...): over-capacity pairs are dropped
-    xbuf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+    if El < E:                          # this rank's experts' pairs
+        se = se - e0
+        keep = keep & (se >= 0) & (se < El)
+    # expert-major buffers (El, C, ...): over-capacity pairs are dropped
+    xbuf = torch.zeros((El, C, d), dtype=x.dtype, device=dev)
     xbuf[se[keep], slot[keep]] = xt[st_[keep]]
-    ybuf = _experts(params, xbuf, cfg)
-    ytok = ybuf[se, slot.clamp(0, C - 1)]                         # (n*k, d)
+    ybuf = _experts({"wi": wi, "wo": wo}, xbuf, cfg)
+    ytok = ybuf[se.clamp(0, El - 1), slot.clamp(0, C - 1)]        # (n*k, d)
     contrib = torch.where(keep[:, None], ytok * sg[:, None].to(x.dtype),
                           0.0).to(x.dtype)
     y = torch.zeros((n, d), dtype=x.dtype, device=dev).index_add_(
@@ -203,5 +242,6 @@ def apply_moe_dense_ref(params: Dict, x: torch.Tensor, cfg: ArchConfig
     w = torch.einsum("nke,nk->en", _one_hot(eidx, E), gates).to(x.dtype)
     y = torch.einsum("end,en->nd", ye, w)
     if cfg.n_shared_experts:
-        y = y + apply_mlp(params["shared"], xt, cfg)
+        y = y + apply_mlp(params["shared"], xt, cfg,
+                          d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
     return y.reshape(B, T, d)

@@ -41,6 +41,7 @@ import torch
 from repro_torch import tree
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import shard
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ATTN, MLA, SSM, ArchConfig
 
@@ -244,19 +245,21 @@ def from_layerwise(cfg: ArchConfig, lw: Dict) -> Dict:
 
 
 def _run(shared, run: Run, blk, cfg, x, aux, positions, frontend, cache,
-         remat: str = "none"):
+         remat: str = "none", prefix: Tuple = ()):
     """A run of layers, one at a time over the leading axis when stacked,
-    each layer checkpointed under ``remat``; caches are written in place."""
-    if run.count == 1:
-        x, _, a = T.apply_block(shared, blk, run.sig.kind, cfg, x,
-                                positions, frontend, cache)
-        return x, aux + a
-
+    each layer checkpointed under ``remat``; caches are written in place.
+    A layer's leaves (``blk`` is the run's subtree at ``prefix``, and
+    zamba2's ``shared`` block) are gathered over the data axes inside the
+    checkpointed body (``shard.gathered``): they live while the layer
+    runs, and remat gathers them again for the backward."""
     def body(x, aux, layer, c):
-        x, _, a = T.apply_block(shared, layer, run.sig.kind, cfg, x,
-                                positions, frontend, c)
+        x, _, a = T.apply_block(shard.gathered(shared, ("shared_attn",)),
+                                shard.gathered(layer, prefix),
+                                run.sig.kind, cfg, x, positions, frontend, c)
         return x, aux + a
 
+    if run.count == 1:
+        return body(x, aux, blk, cache)
     body = _remat(body, remat)
     for i, layer in enumerate(_unstack(blk, run.count)):
         x, aux = body(x, aux, layer,
@@ -271,25 +274,31 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     """tokens: (B, T) int; frontend: (B, F, frontend_dim) embeddings for
     the fusion layers, or None.  Returns (logits (B,T,V) float32, caches,
     aux); given caches are written in place and returned.  ``remat``
-    (none | full | dots) checkpoints the layers for training."""
+    (none | full | dots) checkpoints the layers for training.  Under a
+    mesh (``launch/steps.py``) ``params`` and ``caches`` are this rank's
+    shards, each leaf gathered over the data axes where it is used, and
+    the logits are this rank's block of the vocabulary."""
     B, Tn = tokens.shape
     if positions is None:
         positions = torch.arange(Tn, dtype=torch.int32,
                                  device=tokens.device).expand(B, Tn)
-    x = L.embed_tokens(params["embed"], tokens)
+    emb = params["embed"]
+    x = L.embed_tokens({"tok": shard.gathered(emb["tok"], ("embed", "tok"))},
+                       tokens, cfg.vocab)
     shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (seg, sp) in enumerate(zip(segments(cfg), params["segments"])):
         cache = caches[si] if caches is not None else None
         if isinstance(seg, Run):
             x, aux = _run(shared, seg, sp, cfg, x, aux, positions, frontend,
-                          cache, remat)
+                          cache, remat, ("segments", si))
             continue
 
-        def rep_body(x, aux, inner, c, seg=seg):
+        def rep_body(x, aux, inner, c, seg=seg, si=si):
             for j, run in enumerate(seg.inner):
                 x, aux = _run(shared, run, inner[j], cfg, x, aux, positions,
-                              frontend, None if c is None else c[j])
+                              frontend, None if c is None else c[j],
+                              prefix=("segments", si, "inner", j))
             return x, aux
 
         rep_body = _remat(rep_body, remat)
@@ -298,8 +307,10 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             x, aux = rep_body(x, aux, list(inner),
                               None if cache is None
                               else [_index(c, r) for c in cache])
-    x = L.apply_norm(params["final_norm"], x, cfg)
-    return L.lm_logits(params["embed"], x), caches, aux
+    x = L.apply_norm(shard.gathered(params["final_norm"], ("final_norm",)),
+                     x, cfg)
+    head = {"head": shard.gathered(emb["head"], ("embed", "head"))}
+    return L.lm_logits(head, x, cfg.vocab), caches, aux
 
 
 def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -308,7 +319,7 @@ def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     """Next-token cross entropy plus ``aux_weight`` times the routers'
     load-balance loss: (loss, {"nll", "aux"}), all float32 scalars."""
     logits, _, aux = forward(params, cfg, tokens, frontend, remat=remat)
-    return T.nll_loss(logits, labels, aux, aux_weight)
+    return T.nll_loss(logits, labels, aux, aux_weight, vocab=cfg.vocab)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from repro_torch import tree
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import shard
 from repro_torch.models.config import ATTN, MLA, SSM, ArchConfig
 
 
@@ -156,14 +157,40 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def nll_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
-             aux_weight: float):
+             aux_weight: float, vocab: Optional[int] = None):
     """(nll + aux_weight * aux, {"nll", "aux"}): the mean over tokens of
-    logsumexp minus the gold logit, in float32."""
+    logsumexp minus the gold logit, in float32.  Logits narrower than
+    ``vocab`` are this rank's block of a vocabulary sharded over the model
+    axis: the logsumexp takes its max and its sum over the ranks, and the
+    gold logit comes from the rank that holds it."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    V = logits.shape[-1]
+    if vocab is None or V == vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        _, me, _ = shard.model_group()
+        lo = L.vocab_blocks(vocab)[me][0][0]
+        m = shard.max_ranks(logits.amax(dim=-1))
+        logz = m + torch.log(shard.reduce(
+            torch.exp(logits - m[..., None]).sum(dim=-1)))
+        t = labels.long() - lo
+        mine = (t >= 0) & (t < V)
+        g = torch.gather(logits, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+        gold = shard.reduce(torch.where(mine, g, torch.zeros_like(g)))
     nll = torch.mean(logz - gold)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def last_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The last position's logits (B, 1, V) over the whole vocabulary,
+    what sampling reads: under a mesh that shards the vocabulary, only
+    that position is gathered over the model axis."""
+    last = logits[:, -1:]
+    if last.shape[-1] == vocab:
+        return last
+    return shard.relay(last, -1, L.vocab_blocks(vocab),
+                       [[(0, vocab)]] * shard.model_size())
 
 
 def loss_fn(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -14,7 +14,14 @@ Programs:
   ``reshard_state`` onto five survivors, DTensor placements of specs on a
   (2, 2, 2) pod x data x model mesh, and ``constrain`` on a DTensor;
 * ``mesh1`` (1 rank, a (1, 1) mesh): the sharded steps, ``train`` and
-  ``serve`` beside the unsharded ones in the same process.
+  ``serve`` beside the unsharded ones in the same process;
+* ``tp8`` (8 ranks, a (2, 4) data x model mesh): for each of
+  :data:`TP_CASES`, a tensor-parallel train step counted by
+  ``roofline.count`` (and, for the cases that count FLOPs, the unsharded
+  step on the rank's rows beside it) and two sharded decode steps; the
+  decode steps again against sequence-sharded caches for
+  :data:`SEQ_SHARD_CASES`; and olmo's case on a (2, 2, 2) pod x data x
+  model mesh.
 """
 from __future__ import annotations
 
@@ -253,6 +260,127 @@ def mesh8(rank, out, inp):
     return res
 
 
+# name -> (arch, config overrides, layers, whether the FLOPs test reads it)
+# on a model axis of 4: heads that divide, KV heads that do not (their
+# head_dim sharded), 6 query heads (blocks of 2, the last rank none),
+# experts that divide and do not (the FFN-width fallback), MLA, the SSD
+# (4 heads; a vocabulary of 250, blocks of 63), zamba2's shared block and
+# cross-attention
+TP_CASES = {
+    "olmo": ("olmo_1b", {}, 2, True),
+    "qwen3_kv2": ("qwen3_14b", {"n_kv_heads": 2}, 2, False),
+    "heads6": ("olmo_1b", {"n_heads": 6, "n_kv_heads": 6, "head_dim": 16},
+               2, True),
+    "moe_e8": ("qwen2_moe_a2_7b", {"n_routed_experts": 8}, 2, False),
+    "moe_e6": ("qwen2_moe_a2_7b", {"n_routed_experts": 6}, 2, False),
+    "deepseek_v2": ("deepseek_v2_236b", {}, 2, False),
+    "mamba2": ("mamba2_1_3b", {"ssm_head_dim": 32, "vocab": 250}, 2,
+               False),
+    "zamba2": ("zamba2_2_7b", {}, 4, False),
+    "llama_vision": ("llama_3_2_vision_90b", {}, 4, False),
+}
+
+
+# decode against caches whose sequence the model axis shards (attention
+# and MLA's latent cache)
+SEQ_SHARD_CASES = ("olmo", "deepseek_v2")
+
+
+def tp_cfg(name):
+    from repro_torch import configs
+    arch, over, layers, _ = TP_CASES[name]
+    return dataclasses.replace(
+        configs.get_config(arch).reduced(n_layers=layers), **over)
+
+
+def _tp_case(cfg, mesh, case, count_plain):
+    from repro_torch import tree
+    from repro_torch.launch import mesh as mesh_lib, roofline as rl
+    from repro_torch.launch import sharding, steps
+    from repro_torch.optim import adamw
+    ocfg = adamw.AdamWConfig(**OCFG)
+    params0 = tree.params_from_numpy(case["params"], "cpu")
+    axes = mesh_lib.data_axes(mesh)
+    rows = sharding.local_rows(mesh, BATCH, axes)
+    fe = case["frontend"]
+    fe = () if fe is None else (torch.from_numpy(fe),)
+    x, y = (torch.from_numpy(a) for a in case["batch"])
+    params = sharding.place(
+        tree.map_with_path(lambda _, t: t.clone(), params0), mesh,
+        sharding.param_specs(mesh, params0))
+    state = steps.init_sharded_opt_state(params, ocfg, mesh)
+    step = steps.make_sharded_train_step(cfg, ocfg, mesh)
+    c = rl.count(step, params, state, x[rows], y[rows],
+                 *(f[rows] for f in fe))
+    params, state, m = c.result
+    res = {"metrics": {k: float(v) for k, v in m.items()},
+           "flops": c.flops, "collectives": c.collectives["counts"],
+           "sites": c.sites, "params": _tree_np(params)}
+    if count_plain:
+        p = tree.map_with_path(lambda _, t: t.clone(), params0)
+        res["plain_flops"] = rl.count(
+            steps.make_train_step(cfg, ocfg), p, adamw.init(p, ocfg),
+            x[rows], y[rows], *(f[rows] for f in fe)).flops
+    res["decode"] = _tp_decode(cfg, mesh, case, params0)
+    return res
+
+
+def _tp_decode(cfg, mesh, case, params0, seq_shard=False):
+    """Two sharded decode steps against the cache (laid out by
+    ``cache_specs``, the sequence over the model axis with
+    ``seq_shard``), the whole batch's logits."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import mesh as mesh_lib, sharding, steps
+    from repro_torch.models import stacked
+    axes = mesh_lib.data_axes(mesh)
+    rows = sharding.local_rows(mesh, BATCH, axes)
+    fe = case["frontend"]
+    fe = () if fe is None else (torch.from_numpy(fe),)
+    params = sharding.place(params0, mesh,
+                            sharding.param_specs(mesh, params0))
+    caches = stacked.init_cache(cfg, BATCH, CACHE_LEN, "cpu")
+    caches = sharding.place(caches, mesh, sharding.cache_specs(
+        mesh, caches, axes, seq_shard=seq_shard))
+    decode = steps.make_sharded_decode_step(cfg, mesh, with_frontend=True)
+    toks = torch.from_numpy(case["toks"])
+    out = []
+    for t in range(2):
+        pos = torch.full((BATCH,), t, dtype=torch.int32)
+        lg, caches = decode(params, toks[rows, t:t + 1], pos[rows], caches,
+                            *(f[rows] for f in fe))
+        where = sharding.placements(mesh, sharding.batch_spec(
+            mesh, (BATCH,) + tuple(lg.shape[1:]), axes))
+        out.append(DTensor.from_local(
+            lg, mesh, where, run_check=False).full_tensor().numpy())
+    return out
+
+
+def tp8(rank, out, inp):
+    """Tensor-parallel compute on a (2, 4) data x model mesh, and olmo's
+    case again on a (2, 2, 2) pod x data x model mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_host_mesh(model_parallel=4)
+    res = {"mesh": (tuple(mesh.shape), tuple(mesh.mesh_dim_names)),
+           "coord": tuple(mesh.get_coordinate())}
+    for name, case in inp.items():
+        res[name] = _tp_case(tp_cfg(name), mesh, case, TP_CASES[name][3])
+    from repro_torch import tree
+    for name in SEQ_SHARD_CASES:
+        res[f"{name}_seq"] = {"decode": _tp_decode(
+            tp_cfg(name), mesh, inp[name],
+            tree.params_from_numpy(inp[name]["params"], "cpu"),
+            seq_shard=True)}
+    cube = init_device_mesh("cpu", (2, 2, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    res["olmo_pod"] = _tp_case(tp_cfg("olmo"), cube, inp["olmo"], False)
+    if rank:                         # every rank holds the same params
+        for r in res.values():
+            if isinstance(r, dict):
+                r.pop("params", None)
+    return res
+
+
 def mesh1(rank, out, inp):
     """World 1: the sharded paths beside the unsharded ones."""
     from repro_torch import tree
@@ -307,4 +435,4 @@ def mesh1(rank, out, inp):
     return res
 
 
-PROGRAMS = {"mesh8": mesh8, "mesh1": mesh1}
+PROGRAMS = {"mesh8": mesh8, "mesh1": mesh1, "tp8": tp8}

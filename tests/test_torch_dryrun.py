@@ -188,20 +188,28 @@ print(json.dumps(out))
 
 def test_dense_train_cell_flops_by_hand():
     """olmo-1b reduced (2 layers, d 64, 4 heads of 16, ff 256, vocab 256,
-    float32) at batch 32 x seq 32 on (16, 16): each rank runs the whole
-    model on its 2 rows.  Forward and backward are three forwards (each
-    product's two gradients).  Remat full recomputes each layer in the
-    backward up to the last tensor the backward saved: all but the MLP's
-    output product (``torch.utils.checkpoint`` stops early).  The head is
-    outside the remat."""
+    float32) at batch 32 x seq 32 on (16, 16): rank 0 computes its 2 rows
+    tensor-parallel over the 16-wide model axis.  Its share: the first
+    of the ceil(4 / 16) = 1-head blocks of the query heads (ranks 4-15
+    hold none), one column of each KV head's head_dim (4 KV heads do not
+    divide 16: ``act_kv_heads`` falls back to head_dim, gathered for the
+    scores), its head's scores and values, ``wo``'s rows of its head, 16
+    of the 256 FFN columns and 16 of the 256 vocabulary columns.  Forward
+    and backward are three forwards (each product's two gradients).
+    Remat full recomputes each layer in the backward up to the last tensor
+    the backward saved: all but the MLP's output product
+    (``torch.utils.checkpoint`` stops early).  The head is outside the
+    remat."""
     got = json.loads(_run(["-c", _TRAIN_CELL]).strip().splitlines()[-1])
-    b, S, d, H, hd, ff, V, L = 2, 32, 64, 4, 16, 256, 256, 2
+    b, S, d, H, hd, ff, V, L, tp = 2, 32, 64, 4, 16, 256, 256, 2, 16
     T = b * S
-    mlp_out = 2 * T * ff * d
-    layer = (2 * T * d * 3 * H * hd + 2 * T * H * hd * d      # q, k, v, o
-             + 2 * 2 * b * H * S * S * hd                      # scores, pv
-             + 2 * T * d * 2 * ff + mlp_out)                   # GLU MLP
-    head = 2 * T * d * V
+    mlp_out = 2 * T * (ff // tp) * d
+    layer = (2 * T * d * hd                                   # q: one head
+             + 2 * 2 * T * d * (H * hd // tp)                 # k, v columns
+             + 2 * 2 * b * S * S * hd                         # scores, pv
+             + 2 * T * hd * d                                 # o: its rows
+             + 2 * T * d * 2 * (ff // tp) + mlp_out)          # GLU MLP
+    head = 2 * T * d * (V // tp)
     assert got["none"]["flops"] == 3 * (L * layer + head)
     assert got["full"]["flops"] == \
         3 * (L * layer + head) + L * (layer - mlp_out)
@@ -215,6 +223,9 @@ def test_dense_train_cell_flops_by_hand():
         assert r["opt"] == 2 * r["params"] + 4      # m, v and the count
         assert mem["argument_bytes"] == r["params"] + r["opt"] + 2 * T * 4
         assert mem["alias_bytes"] == r["params"] + r["opt"]
-        # the whole params are gathered on every rank
-        assert mem["temp_bytes"] >= 4 * n
-        assert r["coll"]["all-gather"] > 0 and r["coll"]["all-reduce"] > 0
+        # a layer's leaves are gathered over the data axis only, with
+        # their model-axis shard: never the whole params
+        assert mem["temp_bytes"] < 4 * n
+        coll = r["coll"]
+        assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+        assert coll["reduce-scatter"] > 0 and coll["all-to-all"] > 0
