@@ -177,6 +177,15 @@ order; any failure raises and exits non-zero:
       ``train_4k`` on 16 x 16 (a fake group of 256 ranks): each record's
       bottleneck, terms and per-rank peak against the card's memory, and
       the world-1 dry run's peak beside the real step's;
+   v. the port's static analysis (``repro_torch.analysis``): the lint
+      over ``src/repro_torch`` and this script, zero findings, printed by
+      family with its seconds; for every instantiation of every kernel,
+      the CUDA lint's static shared memory (template arguments bound from
+      the mangled entry name) beside ptxas's ``bytes smem`` from phase 2's
+      build (a report compiled anew where a library came from cache),
+      equal wherever the lint resolves a figure; the lint's opt-in and
+      static limits equal to the card's; the trace gate on the card, every
+      case passing, every kernel target launched for real;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -1899,6 +1908,106 @@ def phase_4u(card: str, zero_counts, counts) -> dict:
     return out
 
 
+# phase 4v: the port's static analysis.  a: the lint over the port's tree
+# and this script; b: the CUDA lint's static shared memory of every kernel
+# instantiation beside ptxas's, its limits beside the card's; c: the trace
+# gate on the card, every kernel launched for real
+
+def phase_4v(card: str, zero_counts, counts) -> dict:
+    """The lint (zero findings), the CUDA lint against ptxas and the card's
+    limits, and the trace gate on the card.  Returns the gate's kernel
+    launches."""
+    import torch
+    from repro_torch.analysis import analyze_paths, cuda_lint, trace_gate
+    from repro_torch.analysis.core import format_findings
+    from repro_torch.kernels import _build, radix_topk
+
+    # ---- a. the lint over the port's tree and this script
+    t0 = time.perf_counter()
+    findings, n_files = analyze_paths([ROOT / "src" / "repro_torch",
+                                       ROOT / "chip_smoke.py"])
+    lint_s = time.perf_counter() - t0
+    families = {fam: sum(f.rule.startswith(fam) for f in findings)
+                for fam in ("DET", "CON", "CUD")}
+    print(f"[{card}] 4v.a lint: {n_files} files, {len(findings)} findings "
+          f"(by family {families}), {lint_s:.2f} s", flush=True)
+    expect(not findings, "4v.a lint findings:\n" + format_findings(findings))
+    tree = ROOT / "src" / "repro_torch"
+    expect(n_files == 1 + len(list(tree.rglob("*.py")))
+           + len(list(tree.rglob("*.cu"))),
+           f"4v.a the lint read {n_files} files, not every file of the tree")
+
+    # ---- b. static shared memory against ptxas; the limits
+    t0 = time.perf_counter()
+    resolved = entries = 0
+    for name in _build.kernel_names():
+        rows = cuda_lint.compare_ptxas(_build.CSRC / f"{name}.cu",
+                                       _build.ptxas_report(name))
+        expect(bool(rows), f"4v.b {name}: no entry function in its ptxas "
+               "report")
+        for row in rows:
+            entries += 1
+            expect(not row.label.startswith("_Z"), f"4v.b {name}: ptxas "
+                   f"entry {row.label} is no kernel the lint read")
+            lint = "unresolved" if row.lint is None else f"{row.lint} B"
+            print(f"[{card}] 4v.b {name} {row.label}: static shared memory "
+                  f"lint {lint}, ptxas {row.ptxas} B", flush=True)
+            if row.lint is not None:
+                resolved += 1
+                expect(row.lint == row.ptxas, f"4v.b {row.label}: the "
+                       f"lint's {row.lint} B != ptxas's {row.ptxas} B")
+    for name, info in sorted(cuda_lint.kernel_table(
+            sorted(_build.CSRC.glob("*.cu"))).items()):
+        static = info["static_smem"]
+        print(f"[{card}] 4v.b {name}: static "
+              f"{'by template argument' if static is None else static} B "
+              f"(lint), dynamic shared memory "
+              f"{'yes' if info['dynamic_smem'] else 'none'}", flush=True)
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        cu = cuda_lint.CudaFile(path, path.read_text())
+        for o in cu.optins:
+            value = cuda_lint.evaluate(o.value, cu.consts, cu.types)
+            print(f"[{card}] 4v.b {path.stem} opt-in for {o.kernel}: "
+                  f"{o.value} = {'at run time' if value is None else value}",
+                  flush=True)
+    props = torch.cuda.get_device_properties(0)
+    optin = props.shared_memory_per_block_optin
+    static_limit = props.shared_memory_per_block
+    print(f"[{card}] 4v.b limits: opt-in {optin} B on the card, "
+          f"{cuda_lint.OPTIN_SMEM_LIMIT} B in the lint; static "
+          f"{static_limit} B on the card, {cuda_lint.STATIC_SMEM_LIMIT} B in "
+          f"the lint; the select form stages rows of up to "
+          f"{radix_topk.stage_limit()} keys; {entries} entries, "
+          f"{resolved} resolved by the lint, {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
+    expect(optin == cuda_lint.OPTIN_SMEM_LIMIT, f"4v.b the card's opt-in "
+           f"limit {optin} B != the lint's {cuda_lint.OPTIN_SMEM_LIMIT} B")
+    expect(static_limit == cuda_lint.STATIC_SMEM_LIMIT, f"4v.b the card's "
+           f"static limit {static_limit} B != the lint's "
+           f"{cuda_lint.STATIC_SMEM_LIMIT} B")
+    expect(resolved > 0, "4v.b the lint resolved no kernel's figure")
+
+    # ---- c. the trace gate on the card
+    zero_counts()
+    t0 = time.perf_counter()
+    results = trace_gate.run_gate()
+    gate_s = time.perf_counter() - t0
+    launched = counts()
+    bad = [r for r in results if not r.ok]
+    ways = {how: sum(r.how == how for r in results)
+            for how in sorted({r.how for r in results})}
+    print(f"[{card}] 4v.c trace gate on the card: {len(results)} cases, "
+          f"{len(bad)} failed, by way {ways}, {gate_s:.2f} s; kernel "
+          f"launches {launched}", flush=True)
+    expect(not bad, "4v.c trace gate:\n" + trace_gate.format_results(bad))
+    for target in trace_gate.KERNEL_MODULES:
+        expect(any(r.target == target and r.how == "card" for r in results),
+               f"4v.c {target}: no case ran on the card")
+    for name, n in launched.items():
+        expect(n > 0, f"4v.c the gate did not launch {name}")
+    return {"launches": launched}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2610,8 +2719,8 @@ def main() -> int:
             expect(np.array_equal(getattr(got, f), getattr(want, f)),
                    f"{engine}: {f} on the card != the host run")
     fused_fault_launches = fault_res["resilient:fused-tns"][1]["fused_tns"]
-    expect(fused_fault_launches > 0, "resilient:fused-tns did not launch "
-           "fused_tns")
+    expect(fused_fault_launches > 0, "the resilient:fused-tns engine did "
+           "not launch fused_tns")
     # mb-ft over 4 banks with bank 1 dead: the 3 survivors split N = 1023
     # evenly, so the multi-bank machine runs on the card
     mb_calls = []
@@ -2955,6 +3064,13 @@ def main() -> int:
     print(f"phase 4u: {time.perf_counter() - t0:.1f} s; launches of the "
           f"counted runs {roof_u['launches']}", flush=True)
 
+    # ---- 4v. the port's static analysis: the lint, the CUDA lint against
+    # ptxas and the card's limits, the trace gate with every kernel launched
+    t0 = time.perf_counter()
+    gate_v = phase_4v(card, zero_counts, counts)
+    print(f"phase 4v: {time.perf_counter() - t0:.1f} s; launches of the "
+          f"gate {gate_v['launches']}", flush=True)
+
     # ---- 5. times
     B, W, N = planes.shape
     fused_ms = cuda_ms(lambda: fused_tns.fused_tns_rank(
@@ -3250,14 +3366,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fused_tns.cu",
          "replaces": "src/repro/kernels/fused_tns.py:155",
          "launches": (launches["fused_tns"] + fused_fault_launches
-                      + slice_launches["fused_tns"]),
+                      + slice_launches["fused_tns"]
+                      + gate_v["launches"]["fused_tns"]),
          "max_abs_err": float(err["fused_tns"]), "ms": fused_ms,
          "plain_ms": plain_s * 1e3, "bound_ms": fwb[0], "bound_by": fwb[1],
          "library_ms": lib_ms},
         {"name": "digit_read", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/digit_read.cu",
          "replaces": "src/repro/kernels/digit_read.py:43",
-         "launches": dr_launches["digit_read"],
+         "launches": (dr_launches["digit_read"]
+                      + gate_v["launches"]["digit_read"]),
          "max_abs_err": float(err["digit_read"]), "ms": dr_ms,
          "plain_ms": dr_plain_ms, "bound_ms": db[0], "bound_by": db[1],
          "library_ms": None},
@@ -3265,7 +3383,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bitplane_pack.cu",
          "replaces": "src/repro/kernels/bitplane_pack.py:19",
          "launches": (topk_launches["bitplane_pack"]
-                      + slice_launches["bitplane_pack"]),
+                      + slice_launches["bitplane_pack"]
+                      + gate_v["launches"]["bitplane_pack"]),
          "max_abs_err": float(err["bitplane_pack"]), "ms": pack_ms,
          "plain_ms": pack_plain_ms, "bound_ms": pb[0], "bound_by": pb[1],
          "library_ms": None},
@@ -3273,14 +3392,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/radix_topk.cu",
          "replaces": "src/repro/kernels/radix_topk.py:37",
          "launches": (topk_launches["radix_topk"]
-                      + slice_launches["radix_topk"]),
+                      + slice_launches["radix_topk"]
+                      + gate_v["launches"]["radix_topk"]),
          "max_abs_err": float(err["radix_topk"]), "ms": topk_ms,
          "plain_ms": topk_plain_ms, "bound_ms": kb[0], "bound_by": kb[1],
          "library_ms": topk_lib_ms},
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul.py:25",
-         "launches": mm_launches["masked_matmul"],
+         "launches": (mm_launches["masked_matmul"]
+                      + gate_v["launches"]["masked_matmul"]),
          "max_abs_err": float(err["masked_matmul"]), "ms": mm_ms,
          "plain_ms": mm_plain_ms, "bound_ms": mb[0], "bound_by": mb[1],
          "library_ms": mm_lib_ms},

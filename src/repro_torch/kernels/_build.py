@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -81,6 +82,28 @@ def build(names: Iterable[str]) -> None:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` report (registers, shared memory, spills) of
+    kernel ``name``: this process's build log where it built the library,
+    else a report compiled anew from the same source and device flags
+    with ``-cubin`` into a temporary directory under ``build/kernels/`` (a
+    library loaded from an earlier build leaves no report)."""
+    if name in build_logs:
+        return build_logs[name]
+    host_only = ("-shared", "-Xcompiler", "-fPIC")
+    flags = [f for f in NVCC_FLAGS if f not in host_only]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        proc = subprocess.run(
+            [_nvcc(), *flags, "-cubin", "-o", str(Path(tmp) / f"{name}.cubin"),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -cubin failed for {name}.cu:\n"
+                           f"{proc.stdout}")
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,14 +3,18 @@ callable behind a shared contract, and :func:`repro_torch.sort.sort`
 dispatches by name.  This registry is the port's own; nothing here touches
 the reference package's registry.
 
-Engine contract::
+Engine contract (what ``repro_torch.analysis.trace_gate`` binds every
+engine against)::
 
-    fn(x, *, width, fmt, k, ascending, level_bits, stop_after, device, **kw)
+    fn(x, *, width, fmt, k, ascending, level_bits, stop_after, device)
         -> SortResult
 
 ``x`` is a host ndarray, shape (N,) or (B, N) when the engine declares
 ``supports_batch``; ``device`` is the resolved ``torch.device`` the engine
-runs its kernels on.
+runs its kernels on.  An engine may take further keyword knobs of its own
+(``ideal_lifo``, ``banks``, ``r``, ``slice_widths``), each by name, and
+no ``**kw``: an unknown knob raises ``TypeError`` (a ``resilient:``
+wrapper passes its knobs on to the engine it wraps, which raises).
 """
 from __future__ import annotations
 

@@ -608,3 +608,39 @@ def test_moe_train_step_on_card_matches_host(cuda_device, remat):
         assert nd == (per_step, per_step) and nh == (0, 0)
         assert abs(ld - lh) <= 1e-5 * abs(lh)
         assert abs(gd - gh) <= 1e-4 * abs(gh)
+
+
+@pytest.mark.cuda
+def test_trace_gate_on_card(cuda_device):
+    # every case on CUDA tensors: its shapes and dtypes those of the CPU
+    # run, every kernel target launching its kernel
+    from repro_torch.analysis import trace_gate
+    before = {t: m.LAUNCHES for t, m in trace_gate.KERNEL_MODULES.items()}
+    results = trace_gate.run_gate(device=cuda_device)
+    bad = [r for r in results if not r.ok]
+    assert bad == [], "\n".join(r.format() for r in bad)
+    assert {r.how for r in results if not r.target.startswith("engine:")} \
+        == {"card"}
+    for target, mod in trace_gate.KERNEL_MODULES.items():
+        assert mod.LAUNCHES > before[target], target
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bitplane_pack", "digit_read", "fused_tns",
+                                  "masked_matmul", "radix_topk"])
+def test_cuda_lint_static_smem_equals_ptxas_on_card(cuda_device, name):
+    from repro_torch.analysis import cuda_lint
+    from repro_torch.kernels import _build
+    rows = cuda_lint.compare_ptxas(_build.CSRC / f"{name}.cu",
+                                   _build.ptxas_report(name))
+    assert rows and any(r.lint is not None for r in rows)
+    for r in rows:
+        assert r.lint is None or r.lint == r.ptxas, r
+
+
+@pytest.mark.cuda
+def test_cuda_lint_limits_are_the_cards(cuda_device):
+    from repro_torch.analysis import cuda_lint
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert props.shared_memory_per_block_optin == cuda_lint.OPTIN_SMEM_LIMIT
+    assert props.shared_memory_per_block == cuda_lint.STATIC_SMEM_LIMIT

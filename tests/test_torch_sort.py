@@ -72,6 +72,27 @@ def test_engine_matches_reference(ref_engine, fmt, shape, stop_after):
     _assert_same_result(got, want)
 
 
+def _reference_engine(name):
+    """The reference package's engine of port engine ``name``."""
+    inner = name[len("resilient:"):] if name.startswith("resilient:") \
+        else name
+    ref = {port: ref for ref, port in ENGINE_MAP.items()}.get(inner, inner)
+    return ref if inner == name else "resilient:" + ref
+
+
+# every registered engine, wrappers and mb-ft included: the dynamic sweep
+# that the port's engine-contract lint (CON404) takes as parity coverage
+@pytest.mark.parametrize("engine", sorted(tsort.engines()))
+def test_every_registered_engine_matches_reference(engine):
+    x, width = _data("unsigned", (24,), seed=5)
+    kw = dict(fmt="unsigned", width=width, k=2, stop_after=6)
+    want = jsort.sort(x, engine=_reference_engine(engine), **kw)
+    got = tsort.sort(x, engine=engine, device="cpu", **kw)
+    assert got.engine == engine
+    _assert_same_result(got, want)
+    assert got.quality == want.quality
+
+
 @pytest.mark.parametrize("ascending", [True, False])
 def test_fused_engine_infers_format_and_direction(ascending):
     x, _ = _data("float", (3, 40), seed=3)
