@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import bitplane as bp
 from repro_torch.kernels import _build, backend
+from repro_torch.runtime import spans
 
 # launches of the CUDA kernel in this process (a plain count: a run sets
 # it to 0 and reads it back to show which path went through the kernel)
@@ -339,11 +340,13 @@ def fused_tns_sort(values, *, width: int, k: int, fmt: str = bp.UNSIGNED,
         raise ValueError(f"fused_tns_sort expects a (B, N) batch, "
                          f"got shape {x.shape}")
     dev = backend.resolve_device(device)
-    digits = bp.read_planes(bp.to_bitplanes(x, width, fmt), kind="bit",
-                            level_bits=1)
-    digits = (np.asarray(digits) != 0).astype(np.uint8)
-    sign = (bp.sign_plane(x, width, fmt)
-            if fmt in (bp.SIGNMAG, bp.FLOAT) else None)
-    planes, sign_t = bp.planes_from_numpy(digits, sign, device=dev)
+    with spans.span("sort.encode"):
+        digits = bp.read_planes(bp.to_bitplanes(x, width, fmt), kind="bit",
+                                level_bits=1)
+        digits = (np.asarray(digits) != 0).astype(np.uint8)
+        sign = (bp.sign_plane(x, width, fmt)
+                if fmt in (bp.SIGNMAG, bp.FLOAT) else None)
+    with spans.span("sort.h2d", dev):
+        planes, sign_t = bp.planes_from_numpy(digits, sign, device=dev)
     return fused_tns_planes(planes, sign_t, k=k, fmt=fmt,
                             ascending=ascending, stop_after=stop_after)

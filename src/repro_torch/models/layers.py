@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
+from repro_torch.runtime import spans
 
 
 def _init(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
@@ -364,30 +365,32 @@ def apply_attn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     positions, and the queries attend over the cache (the returned cache
     is the same dict).  Under a mesh: this rank's heads, ``wo``'s rows
     summed over the model axis."""
-    B, T, d = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    x = shard.enter(x)
-    q, k, v, lay, heads = _project_qkv(params, x, x, cfg, cache is not None)
-    if cfg.qk_norm:
-        q = _head_rms(q, shard.enter(params["q_norm"]))
-        k = _head_rms(k, shard.enter(params["k_norm"]))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if cache is not None:
-        idx = positions[:, 0]
-        k = _cached(cache["k"], k, idx)
-        v = _cached(cache["v"], v, idx)
-        kv_len = idx + T
-    else:
-        kv_len = None
-    if lay != 2 and shard.model_size() > 1:
-        k, v = _own_kv(k, heads, H), _own_kv(v, heads, H)
-    out = _sdpa(q, k, v, causal=True, q_pos=positions, kv_len=kv_len,
-                impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    wo = shard.take(params["wo"], -2, H * hd,
-                    shard.spans(shard.split(H, shard.model_size()), hd))
-    out = out.reshape(B, T, (heads[1] - heads[0]) * hd)
-    return shard.reduce(out @ wo), cache
+    with spans.span("attn", x):
+        B, T, d = x.shape
+        H, hd = cfg.n_heads, cfg.hd
+        x = shard.enter(x)
+        q, k, v, lay, heads = _project_qkv(params, x, x, cfg,
+                                           cache is not None)
+        if cfg.qk_norm:
+            q = _head_rms(q, shard.enter(params["q_norm"]))
+            k = _head_rms(k, shard.enter(params["k_norm"]))
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            idx = positions[:, 0]
+            k = _cached(cache["k"], k, idx)
+            v = _cached(cache["v"], v, idx)
+            kv_len = idx + T
+        else:
+            kv_len = None
+        if lay != 2 and shard.model_size() > 1:
+            k, v = _own_kv(k, heads, H), _own_kv(v, heads, H)
+        out = _sdpa(q, k, v, causal=True, q_pos=positions, kv_len=kv_len,
+                    impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+        wo = shard.take(params["wo"], -2, H * hd,
+                        shard.spans(shard.split(H, shard.model_size()), hd))
+        out = out.reshape(B, T, (heads[1] - heads[0]) * hd)
+        return shard.reduce(out @ wo), cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,

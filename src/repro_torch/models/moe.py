@@ -41,6 +41,7 @@ from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (_init, apply_mlp, glu_act, init_mlp,
                                        mlp_partial)
+from repro_torch.runtime import spans
 
 # router_impl -> the port's topk engine; the reference's names map onto
 # the port's, and the port's own names stand for themselves
@@ -118,35 +119,37 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: ArchConfig,
               capacity_factor=_USE_CFG, dispatch: str = "einsum"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d).  Returns (y, aux_loss)."""
-    if capacity_factor is _USE_CFG:
-        capacity_factor = cfg.moe_capacity_factor
-    B, T, d = x.shape
-    E, k = cfg.n_routed_experts, cfg.moe_top_k
-    logits = x.float() @ params["router"]                  # (B, T, E)
-    gates, eidx = route_topk(logits, k, cfg.router_impl)   # (B, T, k)
+    with spans.span("moe", x):
+        if capacity_factor is _USE_CFG:
+            capacity_factor = cfg.moe_capacity_factor
+        B, T, d = x.shape
+        E, k = cfg.n_routed_experts, cfg.moe_top_k
+        logits = x.float() @ params["router"]                  # (B, T, E)
+        gates, eidx = route_topk(logits, k, cfg.router_impl)   # (B, T, k)
 
-    # load-balance auxiliary loss (Switch-style): a product of means over
-    # the whole batch, so under a mesh both means are taken over the data
-    # ranks' rows (shard.data_mean; the identity without a mesh)
-    me = shard.data_mean(torch.softmax(logits, dim=-1).mean(dim=(0, 1)))
-    ce = shard.data_mean(torch.zeros(
-        (E,), dtype=torch.float32, device=x.device).index_add_(
-        0, eidx.reshape(-1).long(),
-        torch.ones(eidx.numel(), dtype=torch.float32, device=x.device)
-    ) / (B * T * k))
-    aux = E * (me * ce).sum()
+        # load-balance auxiliary loss (Switch-style): a product of means over
+        # the whole batch, so under a mesh both means are taken over the data
+        # ranks' rows (shard.data_mean; the identity without a mesh)
+        me = shard.data_mean(torch.softmax(logits, dim=-1).mean(dim=(0, 1)))
+        ce = shard.data_mean(torch.zeros(
+            (E,), dtype=torch.float32, device=x.device).index_add_(
+            0, eidx.reshape(-1).long(),
+            torch.ones(eidx.numel(), dtype=torch.float32, device=x.device)
+        ) / (B * T * k))
+        aux = E * (me * ce).sum()
 
-    x_in, gates = shard.enter(x), shard.enter(gates)
-    if dispatch == "sort":
-        y = _sort_dispatch(params, x_in, cfg, gates, eidx, capacity_factor)
-    elif dispatch == "einsum":
-        y = _einsum_dispatch(params, x_in, cfg, gates, eidx, capacity_factor)
-    else:
-        raise ValueError(f"unknown dispatch {dispatch!r}")
-    if cfg.n_shared_experts:
-        y = y + mlp_partial(params["shared"], x_in, cfg,
-                            d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
-    return shard.reduce(y), aux
+        x_in, gates = shard.enter(x), shard.enter(gates)
+        if dispatch == "sort":
+            y = _sort_dispatch(params, x_in, cfg, gates, eidx, capacity_factor)
+        elif dispatch == "einsum":
+            y = _einsum_dispatch(params, x_in, cfg, gates, eidx,
+                                 capacity_factor)
+        else:
+            raise ValueError(f"unknown dispatch {dispatch!r}")
+        if cfg.n_shared_experts:
+            y = y + mlp_partial(params["shared"], x_in, cfg,
+                                d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+        return shard.reduce(y), aux
 
 
 def _expert_block(params, cfg: ArchConfig):
@@ -168,8 +171,9 @@ def _expert_block(params, cfg: ArchConfig):
 def _experts(params, xbuf: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The routed experts' GLU on an expert-major buffer (E, n, d): one
     batched product a weight, the (E, d, f) banks read as they lie."""
-    gate, up = torch.bmm(xbuf, params["wi"]).chunk(2, dim=-1)
-    return torch.bmm(glu_act(gate, cfg) * up, params["wo"])
+    with spans.span("moe.experts", xbuf):
+        gate, up = torch.bmm(xbuf, params["wi"]).chunk(2, dim=-1)
+        return torch.bmm(glu_act(gate, cfg) * up, params["wo"])
 
 
 def _einsum_dispatch(params, x, cfg, gates, eidx, capacity_factor):
@@ -179,15 +183,18 @@ def _einsum_dispatch(params, x, cfg, gates, eidx, capacity_factor):
     dt = x.dtype
     e0, wi, wo = _expert_block(params, cfg)
     El = wi.shape[0]
-    oh_e, pos_tk, keep = dispatch_slots(eidx, E, C)
-    oh_c = _one_hot(pos_tk.to(torch.int32), C) * keep[..., None]
-    if El < E:                          # this rank's experts' slots
-        oh_e = oh_e[..., e0:e0 + El]
-    disp = torch.einsum("btke,btkc->btec", oh_e, oh_c).to(dt)
-    comb = torch.einsum("btke,btkc,btk->btec", oh_e, oh_c, gates).to(dt)
-    # the group (= batch row) dim stays on the expert buffers: capacity
-    # slots are per group, so (b, e, c) never collides across rows
-    xbuf = torch.einsum("btec,btd->ebcd", disp, x)         # (El,B,C,d)
+    spans.count("moe.slots", El * B * C)
+    spans.count("moe.assignments", B * T * cfg.moe_top_k)
+    with spans.span("moe.dispatch", x):
+        oh_e, pos_tk, keep = dispatch_slots(eidx, E, C)
+        oh_c = _one_hot(pos_tk.to(torch.int32), C) * keep[..., None]
+        if El < E:                      # this rank's experts' slots
+            oh_e = oh_e[..., e0:e0 + El]
+        disp = torch.einsum("btke,btkc->btec", oh_e, oh_c).to(dt)
+        comb = torch.einsum("btke,btkc,btk->btec", oh_e, oh_c, gates).to(dt)
+        # the group (= batch row) dim stays on the expert buffers: capacity
+        # slots are per group, so (b, e, c) never collides across rows
+        xbuf = torch.einsum("btec,btd->ebcd", disp, x)     # (El,B,C,d)
     ybuf = _experts({"wi": wi, "wo": wo}, xbuf.reshape(El, B * C, d), cfg)
     return torch.einsum("btec,ebcd->btd", comb, ybuf.reshape(El, B, C, d))
 
@@ -201,6 +208,8 @@ def _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor):
     C = _capacity(n, k, E, capacity_factor)
     e0, wi, wo = _expert_block(params, cfg)
     El = wi.shape[0]
+    spans.count("moe.slots", El * C)
+    spans.count("moe.assignments", n * k)
     flat_e = eidx.reshape(-1).to(torch.int32)                     # (n*k,)
     flat_g = gates.reshape(-1)
     flat_t = torch.arange(n, device=dev).repeat_interleave(k)

@@ -18,6 +18,7 @@ import torch
 from repro_torch import sort as sort_engine
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
+from repro_torch.runtime import spans
 
 
 def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
@@ -25,15 +26,17 @@ def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
     """logits: (B, V) -> int32 token ids (B,), drawn with ``gen`` (a
     generator on the logits' device).  ``top_k`` 0 disables filtering;
     masked logits are -1e30, so a draw never leaves the top-k mask."""
-    if temperature <= 0.0:
-        return logits.argmax(dim=-1).to(torch.int32)
-    lg = logits.float() / temperature
-    if top_k:
-        mask = sort_engine.topk_mask(lg, top_k, largest=True)
-        lg = torch.where(mask, lg, -1e30)
-    u = torch.rand(lg.shape, generator=gen, device=lg.device)
-    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
-    return (lg + gumbel).argmax(dim=-1).to(torch.int32)
+    with spans.span("sample", logits):
+        if temperature <= 0.0:
+            return logits.argmax(dim=-1).to(torch.int32)
+        lg = logits.float() / temperature
+        if top_k:
+            mask = sort_engine.topk_mask(lg, top_k, largest=True)
+            lg = torch.where(mask, lg, -1e30)
+        u = torch.rand(lg.shape, generator=gen, device=lg.device)
+        tiny = torch.finfo(u.dtype).tiny
+        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+        return (lg + gumbel).argmax(dim=-1).to(torch.int32)
 
 
 def generate(params, cfg: ArchConfig, prompt: torch.Tensor, max_new: int,

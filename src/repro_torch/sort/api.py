@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import bitplane as bp
 from repro_torch.core import radix_select as rs
 from repro_torch.kernels import backend
+from repro_torch.runtime import spans
 from repro_torch.sort.registry import available_engines, get_engine
 from repro_torch.sort.result import SortResult
 
@@ -76,40 +77,41 @@ def sort(x, *, engine: str = "tns", fmt: Optional[str] = None,
     """
     spec = get_engine(engine)
     dev = backend.resolve_device(device)
-    x = np.asarray(x)
-    if x.ndim not in (1, 2):
-        raise ValueError(f"x must be (N,) or (B, N), got shape {x.shape}")
-    fmt, width = _infer_fmt_width(x, fmt, width)
-    if fmt not in spec.formats:
-        raise ValueError(f"engine {engine!r} does not support fmt {fmt!r}")
-    call = dict(width=width, fmt=fmt, k=k, ascending=ascending,
-                level_bits=level_bits, stop_after=stop_after, device=dev,
-                **engine_kw)
-    if x.ndim == 2 and not spec.supports_batch:
-        parts = [spec.fn(x[b], **call) for b in range(x.shape[0])]
-        stack = lambda f: (None if getattr(parts[0], f) is None else
-                           np.stack([np.asarray(getattr(p, f))
-                                     for p in parts]))
-        p0 = parts[0]
-        return SortResult(
-            values=np.stack([p.values for p in parts]),
-            indices=np.stack([p.indices for p in parts]),
-            engine=p0.engine, fmt=fmt, width=width, n=x.shape[-1],
-            cycles=stack("cycles"), drs=stack("drs"),
-            reload_cycles=stack("reload_cycles"),
-            strategy=p0.strategy, k=p0.k, level_bits=p0.level_bits,
-            banks=p0.banks,
-            # resilience observables aggregate across the batch: quality
-            # is the worst instance (the degradation contract is per
-            # emission), counters sum, degraded if any instance degraded
-            quality=(None if p0.quality is None else
-                     min(float(p.quality) for p in parts)),
-            faults_injected=sum(p.faults_injected for p in parts),
-            repairs=sum(p.repairs for p in parts),
-            retries=sum(p.retries for p in parts),
-            degraded=any(p.degraded for p in parts),
-            extra_cycles=sum(p.extra_cycles for p in parts))
-    return spec.fn(x, **call)
+    with spans.span("sort", dev):
+        x = np.asarray(x)
+        if x.ndim not in (1, 2):
+            raise ValueError(f"x must be (N,) or (B, N), got shape {x.shape}")
+        fmt, width = _infer_fmt_width(x, fmt, width)
+        if fmt not in spec.formats:
+            raise ValueError(f"engine {engine!r} does not support fmt {fmt!r}")
+        call = dict(width=width, fmt=fmt, k=k, ascending=ascending,
+                    level_bits=level_bits, stop_after=stop_after, device=dev,
+                    **engine_kw)
+        if x.ndim == 2 and not spec.supports_batch:
+            parts = [spec.fn(x[b], **call) for b in range(x.shape[0])]
+            stack = lambda f: (None if getattr(parts[0], f) is None else
+                               np.stack([np.asarray(getattr(p, f))
+                                         for p in parts]))
+            p0 = parts[0]
+            return SortResult(
+                values=np.stack([p.values for p in parts]),
+                indices=np.stack([p.indices for p in parts]),
+                engine=p0.engine, fmt=fmt, width=width, n=x.shape[-1],
+                cycles=stack("cycles"), drs=stack("drs"),
+                reload_cycles=stack("reload_cycles"),
+                strategy=p0.strategy, k=p0.k, level_bits=p0.level_bits,
+                banks=p0.banks,
+                # resilience observables aggregate across the batch: quality
+                # is the worst instance (the degradation contract is per
+                # emission), counters sum, degraded if any instance degraded
+                quality=(None if p0.quality is None else
+                         min(float(p.quality) for p in parts)),
+                faults_injected=sum(p.faults_injected for p in parts),
+                repairs=sum(p.repairs for p in parts),
+                retries=sum(p.retries for p in parts),
+                degraded=any(p.degraded for p in parts),
+                extra_cycles=sum(p.extra_cycles for p in parts))
+        return spec.fn(x, **call)
 
 
 def engines():

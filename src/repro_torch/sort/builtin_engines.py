@@ -25,6 +25,7 @@ from repro_torch.core import radix_select as rs
 from repro_torch.core import ref_tns as rt
 from repro_torch.core import tns as tt
 from repro_torch.kernels import bitplane_pack, fused_tns, radix_topk
+from repro_torch.runtime import spans
 from repro_torch.sort.registry import register
 from repro_torch.sort.result import SortResult
 
@@ -32,15 +33,16 @@ from repro_torch.sort.result import SortResult
 def _finish(x, perm, *, engine, fmt, width, k=0, level_bits=1,
             stop_after=None, cycles=None, drs=None, reload_cycles=None,
             strategy=None) -> SortResult:
-    perm = np.asarray(perm)
-    if stop_after is not None:
-        perm = perm[..., :stop_after]
-    vals = np.take_along_axis(np.asarray(x), perm, axis=-1)
-    asarr = lambda v: None if v is None else np.asarray(v)
-    return SortResult(values=vals, indices=perm, engine=engine, fmt=fmt,
-                      width=width, n=x.shape[-1], cycles=asarr(cycles),
-                      drs=asarr(drs), reload_cycles=asarr(reload_cycles),
-                      strategy=strategy, k=k, level_bits=level_bits)
+    with spans.span("sort.finish"):
+        perm = np.asarray(perm)
+        if stop_after is not None:
+            perm = perm[..., :stop_after]
+        vals = np.take_along_axis(np.asarray(x), perm, axis=-1)
+        asarr = lambda v: None if v is None else np.asarray(v)
+        return SortResult(values=vals, indices=perm, engine=engine, fmt=fmt,
+                          width=width, n=x.shape[-1], cycles=asarr(cycles),
+                          drs=asarr(drs), reload_cycles=asarr(reload_cycles),
+                          strategy=strategy, k=k, level_bits=level_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +188,9 @@ def _fused_tns(x, *, width, fmt, k, ascending, level_bits, stop_after,
     out = fused_tns.fused_tns_sort(
         xb, width=width, k=k, fmt=fmt, ascending=ascending,
         stop_after=stop_after, device=device)
-    perm, cycles, drs, rlc = (t.cpu().numpy() for t in (
-        out.perm, out.cycles, out.drs, out.reload_cycles))
+    with spans.span("sort.d2h", out.perm):
+        perm, cycles, drs, rlc = (t.cpu().numpy() for t in (
+            out.perm, out.cycles, out.drs, out.reload_cycles))
     if squeeze:
         perm, cycles, drs, rlc = perm[0], cycles[0], drs[0], rlc[0]
     return _finish(x, perm, engine="fused-tns", fmt=fmt, width=width,
