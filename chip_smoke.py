@@ -38,9 +38,11 @@ order; any failure raises and exits non-zero:
 4. the port's paths at full size, each driven with the launch counts set
    to 0 just before and read just after:
    a. ``sort(x, engine="fused-tns", k=2)`` on float16 (4096, 1024) —
-      N = 1024 is the paper's array, 4096 banks put 64 MiB of planes on
-      the card — held against a stable argsort of the sort keys, the
-      event-driven oracle on rows 0-3 and the plain version on all rows;
+      N = 1024 is the paper's array; the 8 MiB of keys go to the card as
+      they are and are encoded there into 64 MiB of planes — held against
+      a stable argsort of the sort keys and the event-driven oracle on rows
+      0-3; the card's encode against the host's bit for bit, and the
+      kernel on those planes against the plain version on all rows;
    b. a large-bank top-m call, (512, 16384) with ``stop_after=64``, whose
       keys need 64 KiB of shared memory per block;
    c. the useful-DR check path: ``min_search`` over the (4096, 16, 1024)
@@ -2450,11 +2452,17 @@ def main() -> int:
     row0 = dataclasses.replace(res, cycles=res.cycles[:1])
     print("metrics row 0:", row0.metrics(), flush=True)
     planes, sign = planes_of(x, 16, "float")
+    planes_k, sign_k = fused_tns.planes_from_keys(torch.from_numpy(x).to(dev),
+                                                  16, "float")
+    same("fused_tns", planes_k, planes, "full size encode on the card")
+    same("fused_tns", sign_k, sign, "full size sign on the card")
+    del planes_k, sign_k
     (_, cnt), plain_s = fused_pair(planes, sign, "full size", k=2,
                                    fmt="float", ascending=True,
                                    stop_after=None)
     lane_eps = int(cnt[:, 6].sum())
-    print(f"full size: kernel == plain (plain {plain_s:.3f} s); "
+    print(f"full size: encode on the card == host's; kernel == plain "
+          f"(plain {plain_s:.3f} s); "
           f"lane-episodes {lane_eps}", flush=True)
 
     # ---- 4b. large-bank top-m
@@ -3086,12 +3094,13 @@ def main() -> int:
     for _ in range(3):
         sort(x, engine="fused-tns", k=2)
     sort_ms = (time.perf_counter() - t0) / 3 * 1e3
-    # the same call's steps one by one: where its time goes
+    # the same call's steps one by one: where its time goes (the float16
+    # keys go in as they are and are encoded on the card)
     marks = [time.perf_counter()]
-    digits = bp.to_bitplanes(x, 16, "float")
-    sign_np = bp.sign_plane(x, 16, "float")
+    k_in = torch.from_numpy(x).to(dev)
+    torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    p_in, s_in = bp.planes_from_numpy(digits, sign_np, device=dev)
+    p_in, s_in = fused_tns.planes_from_keys(k_in, 16, "float")
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     rank_out, _ = fused_tns.fused_tns_rank(p_in, s_in, k=2, fmt="float")
@@ -3099,9 +3108,11 @@ def main() -> int:
     marks.append(time.perf_counter())
     fused_tns.rank_to_perm(rank_out).cpu().numpy()
     marks.append(time.perf_counter())
-    steps = dict(zip(("encode on the host", "copy in", "kernel",
+    steps = dict(zip(("copy in", "encode on the card", "kernel",
                       "perm + copy out"),
                      ((b - a) * 1e3 for a, b in zip(marks, marks[1:]))))
+    encode_ms = cuda_ms(lambda: fused_tns.planes_from_keys(k_in, 16, "float"),
+                        5)
     keys_t = torch.from_numpy(keys.astype(np.int32)).to(dev)
     lib_ms = cuda_ms(lambda: torch.sort(keys_t, dim=1, stable=True), 20)
     dr_plain_ms = cuda_ms(lambda: min_search_ref(planes), 3)
@@ -3158,7 +3169,8 @@ def main() -> int:
           + ops_bounds(fused_ops, fused_word_ops)
           + f" -> the least, {fwb[0]:.4f} ms, bound by {fwb[1]}; plain "
           f"{plain_s * 1e3:.1f} ms; torch.sort {lib_ms:.4f} ms; the first "
-          f"{few} banks alone (4 an SM) {fused_few_ms:.4f} ms", flush=True)
+          f"{few} banks alone (4 an SM) {fused_few_ms:.4f} ms; sort()'s "
+          f"encode on the card before it {encode_ms:.4f} ms", flush=True)
     print(f"[{card}] sort(engine='fused-tns') whole call: {sort_ms:.1f} ms; "
           "steps: " + ", ".join(f"{k} {v:.1f} ms" for k, v in steps.items()),
           flush=True)

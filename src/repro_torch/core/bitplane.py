@@ -313,6 +313,11 @@ def set_read_hook(fn):
     return prev
 
 
+def read_hook():
+    """The installed read hook, or None: the array reads as programmed."""
+    return _read_hook
+
+
 def read_planes(planes, *, kind: str = "bit", level_bits: int = 1,
                 banks: Optional[int] = None):
     """One device read of a stored (..., D, N) digit-plane matrix.

@@ -11,6 +11,12 @@ a warp vote where the TPU kernel takes an argmin over per-lane keys.
 over (B, W, ceil(N/32)) words with a Python loop, run for CPU tensors and
 as the comparison point on the card.
 
+:func:`fused_tns_sort` programs the array on the device where it can: the
+keys go there as they are and :func:`planes_from_keys` builds their
+bit-planes with torch shifts, so that the host writes no planes; under a
+fault hook, or for keys whose container is not their own raw-bit image,
+the host encodes them as the reference does.
+
 Outputs are a rank ring (rank[i] = emission slot of element i, -1 if
 never emitted) and a (B, 8) counter block; the wrappers invert the ring
 into the forward permutation with a device scatter.
@@ -39,6 +45,10 @@ _FMT_CODE = {bp.UNSIGNED: 0, bp.TWOS: 1, bp.SIGNMAG: 2, bp.FLOAT: 3}
 MAX_N = 1 << 15    # exclusive: a bank's columns fit one block's smem
 MAX_WIDTH = 30     # the reference's bound: its keys are int32 words
 _WORD = 0xFFFFFFFF  # the plain version's 32-bit words, held in int64
+# host dtypes that ``planes_from_keys`` takes as they are (native order)
+_HOST_KEYS = frozenset(np.dtype(t) for t in (
+    np.uint8, np.int8, np.uint16, np.float16, np.int16, np.uint32,
+    np.int32))
 
 
 class FusedOut(NamedTuple):
@@ -235,6 +245,42 @@ def fused_tns_rank_ref(planes: torch.Tensor,
     return rank, cnt.to(torch.int32)
 
 
+def _keys_fit(float16: bool, width: int, fmt: str) -> bool:
+    """Whether ``bp.raw_bits`` takes keys of an integer (or the float16)
+    container as :func:`planes_from_keys` reads them: integers under every
+    format but FLOAT, float16 under FLOAT at width 16 (anything else
+    converts values)."""
+    return fmt == bp.FLOAT and width == 16 if float16 else fmt != bp.FLOAT
+
+
+def planes_from_keys(keys: torch.Tensor, width: int, fmt: str):
+    """The array image of (B, N) keys on their device: (planes (B, W, N)
+    uint8, sign (B, N) uint8 or None), equal to ``bp.to_bitplanes`` and
+    ``bp.sign_plane``: each key widened to int32 (signed containers
+    sign-extend, uint8, uint16 and float16's bits zero-extend, uint32 keeps
+    its bits), its raw W bits (the low W, or the sign at W-1 over
+    ``|x| & mask(W-1)``; INT32_MIN's wrapped ``abs`` has the same low
+    bits), MSB first; the sign of the signed formats is the MSB plane."""
+    if keys.dtype in (torch.uint16, torch.float16):
+        u = keys.view(torch.int16).to(torch.int32) & 0xFFFF
+    elif keys.dtype == torch.uint32:
+        u = keys.view(torch.int32)
+    else:
+        u = keys.to(torch.int32)
+    mask = (1 << width) - 1
+    if fmt == bp.SIGNMAG and keys.dtype.is_signed:
+        u = (((u < 0).to(torch.int32) << (width - 1))
+             | (u.abs() & (mask >> 1)))
+    else:
+        u = u & (mask >> 1 if fmt == bp.SIGNMAG else mask)
+    shifts = torch.arange(width - 1, -1, -1, dtype=torch.int32,
+                          device=keys.device)
+    planes = (u[:, None, :] >> shifts[:, None]).to(torch.uint8) & 1
+    sign = (planes[:, 0].contiguous()
+            if fmt in (bp.SIGNMAG, bp.FLOAT) else None)
+    return planes, sign
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_tns")
@@ -328,9 +374,15 @@ def fused_tns_sort(values, *, width: int, k: int, fmt: str = bp.UNSIGNED,
                    ascending: bool = True, level_bits: int = 1,
                    stop_after: Optional[int] = None,
                    device=None) -> FusedOut:
-    """Encode a (B, N) host batch like programming the memristor array
-    (through the fault-injectable ``bitplane.read_planes``), carry it to
-    ``device`` (the card unless named) and run the fused controller."""
+    """Program a (B, N) host batch into the memristor array on ``device``
+    (the card unless named) and run the fused controller.
+
+    Where the array image is ``bp.raw_bits`` of the keys as they are (an
+    integer container of up to 32 bits, or float16 under FLOAT at width
+    16) and no fault hook is installed, the keys go to the device and
+    :func:`planes_from_keys` encodes them there.  Otherwise the host
+    encodes the bit-planes and reads them through the fault-injectable
+    ``bitplane.read_planes``, which a fault hook corrupts."""
     if level_bits != 1:
         raise NotImplementedError(
             "fused TNS runs binary (level_bits=1) planes; multi-level "
@@ -341,12 +393,24 @@ def fused_tns_sort(values, *, width: int, k: int, fmt: str = bp.UNSIGNED,
                          f"got shape {x.shape}")
     dev = backend.resolve_device(device)
     with spans.span("sort.encode"):
-        digits = bp.read_planes(bp.to_bitplanes(x, width, fmt), kind="bit",
-                                level_bits=1)
-        digits = (np.asarray(digits) != 0).astype(np.uint8)
-        sign = (bp.sign_plane(x, width, fmt)
-                if fmt in (bp.SIGNMAG, bp.FLOAT) else None)
-    with spans.span("sort.h2d", dev):
-        planes, sign_t = bp.planes_from_numpy(digits, sign, device=dev)
+        on_device = (x.dtype in _HOST_KEYS
+                     and _keys_fit(x.dtype == np.float16, width, fmt)
+                     and bp.read_hook() is None)
+        if on_device:
+            keys = np.require(x, requirements=("C", "A", "W"))
+        else:
+            digits = bp.read_planes(bp.to_bitplanes(x, width, fmt),
+                                    kind="bit", level_bits=1)
+            digits = (np.asarray(digits) != 0).astype(np.uint8)
+            sign = (bp.sign_plane(x, width, fmt)
+                    if fmt in (bp.SIGNMAG, bp.FLOAT) else None)
+    if on_device:
+        spans.count("sort.encode_on_card", x.shape[0])
+        with spans.span("sort.h2d", dev):
+            keys_t = torch.from_numpy(keys).to(dev)
+        planes, sign_t = planes_from_keys(keys_t, width, fmt)
+    else:
+        with spans.span("sort.h2d", dev):
+            planes, sign_t = bp.planes_from_numpy(digits, sign, device=dev)
     return fused_tns_planes(planes, sign_t, k=k, fmt=fmt,
                             ascending=ascending, stop_after=stop_after)

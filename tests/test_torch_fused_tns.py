@@ -4,17 +4,22 @@ inputs.  On the CPU the wrappers run the kernels' plain PyTorch versions;
 the CUDA kernels themselves are held against those on the card (tests
 marked ``cuda``, and ``chip_smoke.py``).  Every output is an integer and
 is compared exactly."""
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.core import bitplane as jbp
 from repro.kernels import digit_read as jdr
 from repro.kernels import fused_tns as jft
+from repro_torch import sort
 from repro_torch.core import bitplane as bp
 from repro_torch.core import ref_tns
 from repro_torch.kernels import digit_read, fused_tns
+from repro_torch.runtime import faults, spans
 
 FMT_DATA = {
     bp.UNSIGNED: (lambda r, s: r.integers(0, 256, s).astype(np.uint8), 8),
@@ -281,6 +286,142 @@ def test_min_search_matches_reference(ascending, shape):
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# the device encode's inputs: every integer container under every format
+# but FLOAT at W = 1, 8, 16 and 30 where the container holds W bits, and
+# float16 under FLOAT at 16
+_INT_KEYS = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
+KEY_CELLS = [(np.dtype(t).name, fmt, w) for t in _INT_KEYS
+             for fmt in (bp.UNSIGNED, bp.TWOS, bp.SIGNMAG)
+             for w in (1, 8, 16, 30) if w <= 8 * np.dtype(t).itemsize]
+KEY_CELLS.append(("float16", bp.FLOAT, 16))
+
+
+def _keys(dtype, shape, seed):
+    """Random keys over the container's whole range with its extremes
+    (min, max, 0, -1 and -0 where they exist) in every row; float16 also
+    with +-inf, NaNs and subnormals."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    if dt == np.float16:
+        x = rng.integers(0, 1 << 16, shape).astype(np.uint16).view(
+            np.float16)
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan,
+                            6e-8, -6e-8, 65504, -65504], np.float16)
+        special = np.concatenate([special, np.array(
+            [0x7C01, 0xFE00], np.uint16).view(np.float16)])
+    else:
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, shape, endpoint=True).astype(dt)
+        special = np.array(sorted({info.min, info.max, 0, 1, info.min + 1,
+                                   -1 if info.min else 2}), dt)
+    x[..., :special.size] = special[:x.shape[-1]]
+    return x
+
+
+@pytest.mark.parametrize("dtype,fmt,width", KEY_CELLS,
+                         ids=[f"{d}-{f}-W{w}" for d, f, w in KEY_CELLS])
+def test_device_encode_equals_the_host_encode(dtype, fmt, width):
+    # the device encode is to_bitplanes / sign_plane bit for bit,
+    # the port's and the reference's: negative ints, INT32_MIN under
+    # sign-magnitude, float16 -0, +-inf and NaN
+    x = _keys(dtype, (3, 70), seed=width + len(fmt))
+    planes, sign = fused_tns.planes_from_keys(torch.from_numpy(x), width,
+                                              fmt)
+    for ref in (bp, jbp):
+        np.testing.assert_array_equal(planes.numpy(),
+                                      np.asarray(ref.to_bitplanes(x, width,
+                                                                  fmt)))
+        if fmt in (bp.SIGNMAG, bp.FLOAT):
+            np.testing.assert_array_equal(
+                sign.numpy(),
+                np.asarray(ref.sign_plane(x, width, fmt)).astype(np.uint8))
+        else:
+            assert sign is None
+
+
+SORT_FIELDS = ("indices", "values", "cycles", "drs", "reload_cycles")
+SORT_KEYS = {bp.UNSIGNED: (np.uint8, 8), bp.TWOS: (np.int16, 16),
+             bp.SIGNMAG: (np.int32, 30), bp.FLOAT: (np.float16, 16)}
+
+
+@pytest.mark.parametrize("fmt", list(SORT_KEYS))
+@pytest.mark.parametrize("n", [31, 32, 33, 1023, 1024, 1025])
+def test_sort_keys_path_equals_host_path(fmt, n):
+    # the same SortResult whether the keys or the host's planes go in: the
+    # host path is forced by a fault hook that injects nothing; full sorts
+    # at a word's edge, the first 40 past a warp's 32 words, both ways
+    dtype, width = SORT_KEYS[fmt]
+    x = _keys(dtype, (2, n), seed=n)
+    x[1, n // 2:] = x[1, 0]                      # a tie set across words
+    for ascending, stop in ((True, None if n < 64 else 40), (False, 9)):
+        kw = dict(engine="fused-tns", fmt=fmt, width=width, k=2,
+                  ascending=ascending, stop_after=stop, device="cpu")
+        got = sort.sort(x, **kw)
+        with faults.inject(faults.FaultSpec()):
+            want = sort.sort(x, **kw)
+        for f in SORT_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f"{f} {ascending} {stop}")
+
+
+# case -> (container, sort()'s format and width, whether the keys go to
+# the device as they are)
+PATH_CASES = {
+    "uint8": (np.uint8, {}, True),
+    "int16-signmag": (np.int16, dict(fmt=bp.SIGNMAG), True),
+    "float16": (np.float16, {}, True),
+    "under-a-hook": (np.uint8, {}, False),
+    "uint64": (np.uint64, {}, False),
+    "float32-at-16": (np.float32, dict(width=16), False),
+    "int8": (np.int8, {}, True),
+    "uint16": (np.uint16, {}, True),
+    "uint32-at-30": (np.uint32, dict(width=30), True),
+    "int32-signmag-at-30": (np.int32, dict(fmt=bp.SIGNMAG, width=30), True),
+    "float16-under-a-hook": (np.float16, {}, False),
+    "int64": (np.int64, {}, False),
+    "bool": (np.bool_, {}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(PATH_CASES))
+def test_sort_takes_the_keys_path_where_the_input_allows(case,
+                                                         monkeypatch):
+    # the keys path counts its banks and runs no host encode; under a
+    # fault hook, and for 64-bit or bool containers or float32 narrowed to
+    # 16 bits, the host encodes and the hook reads the planes
+    dtype, fmt_width, on_card = PATH_CASES[case]
+    kw = dict(engine="fused-tns", k=2, device="cpu", **fmt_width)
+    if dtype == np.float32:
+        x = _keys(np.float16, (3, 40), seed=4).astype(np.float32)
+    elif dtype in (np.uint64, np.int64, np.bool_):
+        x = _keys(np.uint8, (3, 40), seed=1).astype(dtype)
+    else:
+        x = _keys(dtype, (3, 40), seed=len(case))
+        if dtype in (np.uint32, np.int32):
+            x = x // 8              # magnitudes within 29 bits
+    encodes = []
+    host_encode = bp.to_bitplanes
+    monkeypatch.setattr(bp, "to_bitplanes", lambda *a, **k: (
+        encodes.append(a[1:]), host_encode(*a, **k))[1])
+    hook = (faults.inject(faults.FaultSpec(ber=0.05, seed=5))
+            if case.endswith("under-a-hook") else contextlib.nullcontext())
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), hook as inj:
+            got = sort.sort(x, **kw)
+        counters = spans.report()["counters"]
+    finally:
+        spans.reset()
+    assert counters.get("sort.encode_on_card", 0) == (3 if on_card else 0)
+    assert len(encodes) == (0 if on_card else 1)
+    if inj is not None:
+        assert inj.counters.reads == 1 and inj.counters.faults_injected > 0
+    else:
+        want = np.argsort(bp.sort_key(x, got.width, got.fmt), axis=1,
+                          kind="stable")
+        np.testing.assert_array_equal(got.indices, want)
 
 
 def test_sort_wrapper_guards():

@@ -57,6 +57,82 @@ def test_fused_tns_kernel_at_word_edges_on_card(cuda_device, n, k):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _key_rows(dtype, n, seed):
+    """Six rows of keys in ``dtype``'s container: random over its whole
+    range led by its extremes (float16: -0, +-inf, NaN), all ties, a few
+    values, the negative half (the top half unsigned), and zeros past the
+    middle."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    if dt == np.float16:
+        x = rng.integers(0, 1 << 16, (6, n)).astype(np.uint16).view(dt)
+        special = np.array([-0.0, 0.0, np.inf, -np.inf, np.nan, -1.0], dt)
+    else:
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, (6, n), endpoint=True).astype(dt)
+        special = np.array([info.min, info.max, 0, info.min + 1, 1], dt)
+    x[0, :min(n, special.size)] = special[:n]
+    x[1] = x[1, 0]
+    x[2] = x[2, rng.integers(0, min(n, 3), n)]
+    if dt.kind == "i":
+        x[3] = np.where(x[3] < 0, x[3], -1 - x[3])
+    elif dt.kind == "u":
+        x[3] |= dt.type(1 << (8 * dt.itemsize - 1))
+    else:
+        x[3] = -np.abs(x[3])
+    x[5, n // 2:] = 0
+    return x
+
+
+_ENCODE_CELLS = [("unsigned", np.uint8, 8), ("unsigned", np.uint32, 30),
+                 ("unsigned", np.int16, 1), ("twos", np.int8, 8),
+                 ("twos", np.uint16, 16), ("signmag", np.int32, 30),
+                 ("signmag", np.int16, 12), ("float", np.float16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1023, 1024, 1025, 2049])
+@pytest.mark.parametrize("fmt,dtype,width", _ENCODE_CELLS,
+                         ids=[f"{f}-{np.dtype(d).name}-W{w}"
+                              for f, d, w in _ENCODE_CELLS])
+def test_fused_tns_device_encode_on_card(cuda_device, fmt, dtype, width, n):
+    # the keys' bit-planes built on the card are the host's encode bit for
+    # bit, every format and container; INT32_MIN under sign-magnitude,
+    # float16 -0, +-inf, NaN
+    x = _key_rows(dtype, n, seed=n + width)
+    planes, sign = fused_tns.planes_from_keys(
+        torch.from_numpy(x).to(cuda_device), width, fmt)
+    assert planes.device.type == "cuda"
+    assert np.array_equal(planes.cpu().numpy(),
+                          bp.to_bitplanes(x, width, fmt))
+    if fmt in ("signmag", "float"):
+        assert np.array_equal(sign.cpu().numpy(),
+                              bp.sign_plane(x, width, fmt).astype(np.uint8))
+    else:
+        assert sign is None
+
+
+@pytest.mark.cuda
+def test_fused_tns_sort_encodes_on_card_at_the_cells_size(cuda_device):
+    # the benchmark's call: (4096, 1024) uint8 at W = 8, k = 2, unsigned;
+    # sort() encodes on the card, launches the kernel once, and returns
+    # the host-encoded path's SortResult (forced by a hook that injects
+    # nothing) in every field, both ways
+    x = np.random.default_rng(12).integers(0, 256, (4096, 1024)).astype(
+        np.uint8)
+    for ascending in (True, False):
+        launches = fused_tns.LAUNCHES
+        got = tsort.sort(x, engine="fused-tns", k=2, ascending=ascending)
+        assert fused_tns.LAUNCHES == launches + 1
+        with faults.inject(faults.FaultSpec()):
+            want = tsort.sort(x, engine="fused-tns", k=2,
+                              ascending=ascending)
+        for f in ("indices", "values", "cycles", "drs", "reload_cycles"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert np.array_equal(tsort.sort(x, engine="fused-tns", k=2).indices,
+                          np.argsort(x, axis=1, kind="stable"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [1, 3, 4, 8])
 def test_topk_kernel_matches_plain_version_on_card(cuda_device, r):
