@@ -53,6 +53,11 @@ order; any failure raises and exits non-zero:
       tokens) and top-4 of bfloat16 (16384, 60) (qwen2-moe), indices held
       to the plain version, values to ``torch.topk``'s, and the packed
       keys of both inputs to the plain version (unpacked: bit for bit);
+      and deepseek-v2's group-limited routing at the dsv2 cell's router
+      shape (``group_routing_check``: (128, 160) float32, 8 groups, top 3,
+      top 6, gates x 16): both selections through the kernels against the
+      plain ones, with their packed keys (the group scores' (128, 8); the
+      masked logits', 100 of 160 at -inf);
    e. ``sort(x, engine="fused-topk", stop_after=32)`` on float32
       (4096, 1024), held to a stable argsort of the sort keys;
    f. ``sort(x, engine="radix")`` on the same x (plain torch, no kernel);
@@ -278,6 +283,50 @@ def expect(cond, msg: str) -> None:
         raise RuntimeError(f"chip smoke failed: {msg}")
 
 
+def group_routing_check(dev, same, zero_counts, counts) -> dict:
+    """deepseek-v2's group-limited routing through ``fused-topk`` on the
+    card at the dsv2 cell's router shape, (128, 160) float32 logits in 8
+    groups, the top 3, then 6 experts, gates x 16 (a row of ties, a row
+    with two tied groups), against the plain selections: the group scores'
+    top 3 and the masked logits' top 6 by ``topk_keys_ref`` of their plain
+    packed keys, each kernel pack against ``pack_keys_ref``, the gates
+    against the softmax over all 160 at the chosen experts.  Returns the
+    route's kernel launches."""
+    import torch
+    from repro_torch import sort as tsort
+    from repro_torch.kernels import bitplane_pack
+    from repro_torch.kernels.ref import pack_keys_ref, topk_keys_ref
+    from repro_torch.models import moe
+    logits = torch.randn(128, 160, generator=torch.Generator().manual_seed(6))
+    logits[1] = 0.5
+    logits[2, 40:60] = logits[2, :20]
+    lg = logits.to(dev)
+    zero_counts()
+    gates, idx = moe.route_topk(lg, 6, "pallas", n_group=8, topk_group=3,
+                                norm=False, scale=16.0)
+    torch.cuda.synchronize()
+    launched = counts()
+    expect(launched["bitplane_pack"] == 2 and launched["radix_topk"] == 2,
+           f"group routing launched {launched}, not 2 packs and 2 top-k")
+    best = lg.reshape(128, 8, 20).amax(-1)
+    _, want_g = topk_keys_ref(~pack_keys_ref(best), 3)
+    same("radix_topk", tsort.topk(best, 3, engine="fused-topk")[1], want_g,
+         "group scores (128, 8) top-3 indices")
+    same("bitplane_pack", bitplane_pack.pack_keys(best), pack_keys_ref(best),
+         "group scores (128, 8) keys")
+    keep = torch.zeros(128, 8, dtype=torch.bool, device=dev).scatter_(
+        1, want_g.long(), True)
+    masked = lg.masked_fill(~keep.repeat_interleave(20, -1), float("-inf"))
+    _, want_i = topk_keys_ref(~pack_keys_ref(masked), 6)
+    same("radix_topk", idx, want_i, "group routing (128, 160) top-6 indices")
+    same("bitplane_pack", bitplane_pack.pack_keys(masked),
+         pack_keys_ref(masked), "masked logits (128, 160) keys")
+    expect(torch.equal(gates, torch.gather(torch.softmax(lg, -1), -1,
+                                           idx.long()) * 16.0),
+           "group routing gates != softmax over 160 at the chosen x 16")
+    return launched
+
+
 def gen(fmt: str, rng, shape):
     if fmt == "unsigned":
         return rng.integers(0, 256, shape).astype("uint8")
@@ -484,8 +533,8 @@ def router_parity(tag: str, cfg, params, moe_layers: int, zero_counts,
         c = dataclasses.replace(cfg, router_impl=impl)
         picks = []
 
-        def route(logits, k, name, picks=picks):
-            gates, idx = real_route(logits, k, name)
+        def route(logits, k, name, picks=picks, **kw):
+            gates, idx = real_route(logits, k, name, **kw)
             picks.append(idx)
             return gates, idx
 
@@ -1296,8 +1345,8 @@ def phase_4s(card: str, zero_counts, counts) -> dict:
     for impl in ("pallas", "radix", "lax"):
         picks = []
 
-        def route(logits, k, name, picks=picks):
-            gates, idx = real_route(logits, k, name)
+        def route(logits, k, name, picks=picks, **kw):
+            gates, idx = real_route(logits, k, name, **kw)
             picks.append(idx)
             return gates, idx
 
@@ -2298,12 +2347,12 @@ def main() -> int:
           "NaN; aligned and not)", flush=True)
 
     cells = 0
-    for n in (1, 60, 160, 1024):
+    for n in (1, 8, 60, 160, 1024):
         keys = bp.keys_from_numpy(rng.integers(0, 2**32, (64, n),
                                                dtype=np.uint32), device=dev)
         keys[1] = 5                            # an all-ties row
         keys[2] = keys[2] % 7                  # many ties
-        for k in (1, 6, 32):
+        for k in (1, 3, 6, 32):
             if k > n:
                 continue
             for r in (1, 3, 4, 8):
@@ -2537,6 +2586,10 @@ def main() -> int:
     print("router indices == plain version; values == torch.topk's; "
           "packed keys == plain version, unpack(pack(x)) == x bit for bit",
           flush=True)
+    group_l = group_routing_check(dev, same, zero_counts, counts)
+    print(f"group-limited routing (128, 160) f32, 8 groups, top 3, top 6: "
+          f"launches {group_l}; group and expert indices == plain version, "
+          "packed keys == plain version, gates == softmax x 16", flush=True)
 
     # ---- 4e/4f. 32-bit sorts: fused-topk top-32 and the radix engine
     xs = np.random.default_rng(4).standard_normal((4096, 1024)).astype(

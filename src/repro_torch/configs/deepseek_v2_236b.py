@@ -1,5 +1,13 @@
 """deepseek-v2-236b [moe] — MLA kv_lora=512, 2 shared + 160 routed top-6.
-[arXiv:2405.04434; hf]"""
+[arXiv:2405.04434; hf]
+
+The registry preset keeps parity with the JAX package's config: it leaves
+the port's group-limited routing (n_group 8, topk_group 3), the published
+gates (the softmax over all 160 times 16, not renormalised) and YaRN
+(factor 40, mscale 0.707) at their defaults, off.  The published model, with
+all three on, is served by the benchmark's configuration
+``portbench/configs/deepseek-v2-236b-ep8.json``
+(``portbench/drivers/lm_mla.py::arch_config``)."""
 from repro_torch.models.config import ArchConfig, MLA
 
 CONFIG = ArchConfig(

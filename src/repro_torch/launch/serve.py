@@ -196,6 +196,8 @@ def _oneshot_main(args) -> Dict:
     cfg = configs.get_config(args.arch)
     if args.router_impl:
         cfg = dataclasses.replace(cfg, router_impl=args.router_impl)
+    if args.decode_graphs:
+        cfg = dataclasses.replace(cfg, decode_graphs=True)
     if not args.full_size:
         cfg = cfg.reduced(n_layers=args.layers, d_model=args.d_model,
                           vocab=args.vocab)
@@ -305,6 +307,9 @@ def main(argv=None):
                           "name (radix | pallas | lax) or the port's "
                           "(radix | fused-topk | torch); default: the arch "
                           "config's choice")
+    grp.add_argument("--decode-graphs", action="store_true",
+                     help="replay each decode step from CUDA graphs on the "
+                          "card (the config's decode_graphs)")
     grp.add_argument("--serve-retries", type=int, default=2,
                      help="full-run retries when the fault pre-flight "
                           "degrades (with --fault-spec)")

@@ -1,5 +1,7 @@
 """Architecture configuration schema for the model zoo (the counterpart
-of ``repro.models.config``, field for field).
+of ``repro.models.config``, field for field, and beyond it the fields of
+DeepSeek-V2's group routing and gates, a layer's held experts and YaRN,
+whose defaults keep the reference's behaviour).
 
 One ``ArchConfig`` describes any of the assigned families:
 dense / MoE / SSM (Mamba2-SSD) / hybrid (Zamba2) / VLM (cross-attn) /
@@ -50,6 +52,29 @@ class ArchConfig:
     # token-by-token decode path (drops are a throughput knob, not part of
     # the paper's technique)
     moe_capacity_factor: Optional[float] = 1.25
+    # DeepSeek-V2's router (the defaults keep the top-k softmax router):
+    # group-limited greedy routing takes the top ``topk_group`` of
+    # ``n_group`` equal groups of experts, each scored by its best expert,
+    # then the top-k experts inside them; with ``norm_topk_prob`` False an
+    # expert's gate is its probability under the softmax over all experts
+    # times ``routed_scaling_factor`` (True: the softmax over the top-k)
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # the routed experts a MoE layer holds (its share of an expert-parallel
+    # deployment): [first_expert_held, first_expert_held + n_experts_held)
+    # of the n_routed_experts it routes over; 0 holds them all
+    n_experts_held: int = 0
+    first_expert_held: int = 0
+    # YaRN scaling of MLA's RoPE (DeepSeek-V2's rope_scaling); a factor of
+    # 1 leaves RoPE and the softmax scale plain
+    rope_scaling_factor: float = 1.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
     # MLA (DeepSeek-V2)
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
@@ -85,6 +110,10 @@ class ArchConfig:
     # (flash-style online softmax over KV chunks — beyond-paper perf path)
     attn_impl: str = "naive"
     attn_chunk: int = 1024
+    # serving: replay the decode step from CUDA graphs on the card
+    # (``launch.steps.make_decode_step``), where a step's launches take
+    # the host longer to issue than the card to run
+    decode_graphs: bool = False
 
     # ------------------------------------------------------------------
     @property

@@ -170,19 +170,83 @@ def _head_rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-         ) -> torch.Tensor:
-    """x: (B, T, H, D) with D even; positions: (B, T).  Rotates the
-    interleaved pairs (x[..., 0::2], x[..., 1::2]) and interleaves them
-    back, as the reference does (not the half-split rotation)."""
-    d = x.shape[-1]
-    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                          device=x.device) / d))
+def yarn_mscale(scale: float, m: float) -> float:
+    """YaRN's attention factor ``0.1 m ln(scale) + 1`` (1 for scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+
+def rope_inv_freq(d: int, theta: float, device,
+                  yarn: Optional[ArchConfig] = None) -> torch.Tensor:
+    """The (d/2,) float32 inverse frequencies of RoPE over d dims:
+    ``theta^(-2i/d)``, or, where ``yarn`` has a scaling factor s > 1,
+    YaRN's blend of them with their interpolation by s (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): the dims that turn fewer than
+    ``beta_slow`` times over the original context are divided by s, those
+    that turn more than ``beta_fast`` times kept, a linear ramp between."""
+    pw = theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                device=device) / d)
+    s = yarn.rope_scaling_factor if yarn is not None else 1.0
+    if s <= 1:
+        return 1.0 / pw
+    L0 = yarn.rope_original_max_position
+    # the dim that turns r times over the original context
+    dim = lambda r: (d * math.log(L0 / (r * 2 * math.pi))
+                     / (2 * math.log(theta)))
+    low = max(math.floor(dim(yarn.rope_beta_fast)), 0)
+    high = min(math.ceil(dim(yarn.rope_beta_slow)), d - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(d // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return 1.0 / (s * pw) * ramp + 1.0 / pw * (1 - ramp)
+
+
+def mla_score_div(cfg: ArchConfig) -> float:
+    """What MLA's scores are divided by, the inverse of its softmax scale:
+    sqrt(key width), over YaRN's ``mscale(s, mscale_all_dim)`` squared
+    where the config scales RoPE (over 1 where it does not, so the plain
+    divisor exactly)."""
+    return (math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+            / yarn_mscale(cfg.rope_scaling_factor, cfg.rope_mscale_all_dim)
+            ** 2)
+
+
+def rope_cos_sin(positions: torch.Tensor, d: int, theta: float, device,
+                 yarn: Optional[ArchConfig] = None):
+    """(cos, sin) (B, T, 1, d/2) of RoPE over d dims at ``positions`` (B,
+    T); ``yarn``: a config whose YaRN scaling applies
+    (:func:`rope_inv_freq`; cos and sin times ``mscale(s, mscale) /
+    mscale(s, mscale_all_dim)``)."""
+    freqs = rope_inv_freq(d, theta, device, yarn)
     ang = positions[..., None].float() * freqs                # (B, T, D/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    if yarn is not None:
+        s = yarn.rope_scaling_factor
+        m = (yarn_mscale(s, yarn.rope_mscale)
+             / yarn_mscale(s, yarn.rope_mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
+    return cos, sin
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """x: (B, T, H, D) rotated by :func:`rope_cos_sin`'s angles: the
+    interleaved pairs (x[..., 0::2], x[..., 1::2]) interleaved back, as the
+    reference does (not the half-split rotation)."""
     x1, x2 = x[..., ::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         yarn: Optional[ArchConfig] = None) -> torch.Tensor:
+    """x: (B, T, H, D) with D even; positions: (B, T).  Rotates the
+    interleaved pairs (x[..., 0::2], x[..., 1::2]) and interleaves them
+    back, as the reference does (not the half-split rotation); ``yarn`` as
+    :func:`rope_cos_sin`."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta, x.device,
+                                   yarn))
 
 
 # ---------------------------------------------------------------------------
@@ -215,24 +279,26 @@ def _causal_mask(q_pos, kp, kv_len):
 
 
 def _sdpa(q, k, v, causal: bool, q_pos=None, kv_len=None,
-          impl: str = "naive", chunk: int = 1024):
+          impl: str = "naive", chunk: int = 1024,
+          div: Optional[float] = None):
     """q: (B,T,H,hd), k/v: (B,S,KV,hd) — grouped heads expanded by repeat.
 
     ``impl='chunked'``: flash-style online softmax over KV chunks, never
     materialising the (T, S) score matrix (numerically equal to naive,
-    pinned by tests).  Masked scores are -1e30, not -inf, and the softmax
-    is cast back to q's dtype before the value product, as the
-    reference's."""
+    pinned by tests).  Scores are divided by ``div`` (sqrt(hd) by
+    default).  Masked scores are -1e30, not -inf, and the softmax is cast
+    back to q's dtype before the value product, as the reference's."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
+    div = div or math.sqrt(hd)
     if KV != H:
         rep = H // KV
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     if impl == "chunked" and S > chunk and S % chunk == 0:
-        return _sdpa_chunked(q, k, v, causal, q_pos, kv_len, chunk)
+        return _sdpa_chunked(q, k, v, causal, q_pos, kv_len, chunk, div)
     scores = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
-    scores = scores / math.sqrt(hd)                           # (B,H,T,S)
+    scores = scores / div                                     # (B,H,T,S)
     if causal:
         dev = q.device
         qp = q_pos if q_pos is not None else torch.arange(
@@ -243,7 +309,7 @@ def _sdpa(q, k, v, causal: bool, q_pos=None, kv_len=None,
     return (probs @ v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
 
 
-def _sdpa_chunked(q, k, v, causal, q_pos, kv_len, chunk):
+def _sdpa_chunked(q, k, v, causal, q_pos, kv_len, chunk, div):
     B, T, H, hd = q.shape
     S, dv = k.shape[1], v.shape[-1]
     dev = q.device
@@ -255,7 +321,7 @@ def _sdpa_chunked(q, k, v, causal, q_pos, kv_len, chunk):
     for off in range(0, S, chunk):
         kc = k[:, off:off + chunk].float().permute(0, 2, 3, 1)
         vc = v[:, off:off + chunk].float().permute(0, 2, 1, 3)
-        s = (qf @ kc) / math.sqrt(hd)
+        s = (qf @ kc) / div
         if causal:
             kp = off + torch.arange(chunk, device=dev)[None, :]
             s = torch.where(_causal_mask(qp, kp, kv_len), s, -1e30)
@@ -469,11 +535,12 @@ def init_mla(cfg: ArchConfig, gen, device) -> Dict:
     return p
 
 
-def _mla_q(params: Dict, x: torch.Tensor, cfg: ArchConfig,
-           positions: torch.Tensor, heads: List[Tuple[int, int]]):
-    """(q_nope (B,T,Hl,dn), q_rope (B,T,Hl,dr) rotated) of this rank's
-    heads; the low-rank query's latent is replicated over the model axis
-    and enters the rank's heads."""
+def _mla_q(params: Dict, x: torch.Tensor, cfg: ArchConfig, cs,
+           heads: List[Tuple[int, int]]):
+    """(q_nope (B,T,Hl,dn), q_rope (B,T,Hl,dr) rotated by ``cs``, the
+    positions' (cos, sin)) of this rank's heads; the low-rank query's
+    latent is replicated over the model axis and enters the rank's
+    heads."""
     B, T, _ = x.shape
     H = cfg.n_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -486,7 +553,7 @@ def _mla_q(params: Dict, x: torch.Tensor, cfg: ArchConfig,
                                         cols)
     _, me, _ = shard.model_group()
     q = q.reshape(B, T, heads[me][1] - heads[me][0], dn + dr)
-    return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+    return q[..., :dn], rotate(q[..., dn:], *cs)
 
 
 def apply_mla(params: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -500,56 +567,76 @@ def apply_mla(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     up-projections absorbed into them (the returned cache is the same
     dict).  Both score products come out in float32; ``q_lat``, ``o_lat``
     and the probabilities are in the compute dtype, as the reference's.
-    Under a mesh: this rank's heads of ``wq_b`` / ``wk_b`` / ``wv_b``, the
-    latent (``wkv_a``, replicated) computed by every rank, ``wo``'s rows
-    summed over the model axis; a cache sharded on the latent is gathered
-    for the read."""
-    B, T, d = x.shape
-    H = cfg.n_heads
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    L = cfg.kv_lora_rank
-    heads = shard.split(H, shard.model_size())
-    _, me, _ = shard.model_group()
-    Hl = heads[me][1] - heads[me][0]
-    q_nope, q_rope = _mla_q(params, x, cfg, positions, heads)
+    Both paths take the config's YaRN (:func:`rope_inv_freq`,
+    :func:`mla_score_div`).  Under a mesh: this rank's heads of
+    ``wq_b`` / ``wk_b`` / ``wv_b``, the latent (``wkv_a``, replicated)
+    computed by every rank, ``wo``'s rows summed over the model axis; a
+    cache sharded on the latent is gathered for the read.
 
-    kv = x @ params["wkv_a"]                                  # (B,T,L+dr)
-    c_kv = _head_rms(kv[..., :L], params["kv_norm"])          # latent
-    k_rope = rope(kv[..., L:][:, :, None, :], positions, cfg.rope_theta)
-    wk_b = shard.take(params["wk_b"], -1, H * dn, shard.spans(heads, dn))
-    wv_b = shard.take(params["wv_b"], -1, H * dv, shard.spans(heads, dv))
-    wo = shard.take(params["wo"], -2, H * dv, shard.spans(heads, dv))
+    Spans: ``mla`` the whole layer, ``mla.attend`` its attention (the key
+    and value up-projections through the value product without a cache;
+    ``q_lat`` through the value up-projection with one); counter
+    ``mla.cache_slots``: the B x S cache positions a cached call reads."""
+    with spans.span("mla", x):
+        B, T, d = x.shape
+        H = cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        L = cfg.kv_lora_rank
+        div = mla_score_div(cfg)
+        heads = shard.split(H, shard.model_size())
+        _, me, _ = shard.model_group()
+        Hl = heads[me][1] - heads[me][0]
+        # the query's and the key's RoPE dims turn by the same angles
+        cs = rope_cos_sin(positions, dr, cfg.rope_theta, x.device, cfg)
+        q_nope, q_rope = _mla_q(params, x, cfg, cs, heads)
 
-    if cache is None:
-        c = shard.enter(c_kv)
-        k_nope = (c @ wk_b).reshape(B, T, Hl, dn)
-        v = (c @ wv_b).reshape(B, T, Hl, dv)
-        k = torch.cat([k_nope, shard.enter(k_rope).expand(B, T, Hl, dr)],
-                      dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        out = _sdpa(q, k, v, causal=True, q_pos=positions,
-                    impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-        return shard.reduce(out.reshape(B, T, Hl * dv) @ wo), None
+        kv = x @ params["wkv_a"]                              # (B,T,L+dr)
+        c_kv = _head_rms(kv[..., :L], params["kv_norm"])      # latent
+        k_rope = rotate(kv[..., L:][:, :, None, :], *cs)
+        wk_b = shard.take(params["wk_b"], -1, H * dn, shard.spans(heads, dn))
+        wv_b = shard.take(params["wv_b"], -1, H * dv, shard.spans(heads, dv))
+        wo = shard.take(params["wo"], -2, H * dv, shard.spans(heads, dv))
 
-    # ---- decode: absorbed attention in latent space -----------------
-    idx = positions[:, 0]
-    cc = _cached(cache["c_kv"], c_kv, idx)                    # (B,S,L)
-    cr = _cached(cache["k_rope"], k_rope[:, :, 0, :], idx)    # (B,S,dr)
-    S = cc.shape[1]
-    # absorb W_uk into q: q_lat (B,T,Hl,L)
-    q_lat = torch.einsum("bthn,lhn->bthl", q_nope, wk_b.reshape(L, Hl, dn))
-    # (B, Hl*T, L|dr) @ (B, L|dr, S): the two score products in float32
-    scores = (matmul_f32(q_lat.permute(0, 2, 1, 3).reshape(B, Hl * T, L),
-                         cc.transpose(1, 2))
-              + matmul_f32(q_rope.permute(0, 2, 1, 3).reshape(B, Hl * T, dr),
-                           cr.transpose(1, 2))).reshape(B, Hl, T, S)
-    scores = scores / math.sqrt(dn + dr)
-    kp = torch.arange(S, device=x.device)[None, :]
-    scores = torch.where(_causal_mask(positions, kp, idx + T), scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o_lat = (probs.reshape(B, Hl * T, S) @ cc).reshape(B, Hl, T, L)
-    out = torch.einsum("bhtl,lhv->bthv", o_lat, wv_b.reshape(L, Hl, dv))
-    return shard.reduce(out.reshape(B, T, Hl * dv) @ wo), cache
+        if cache is None:
+            with spans.span("mla.attend", x):
+                c = shard.enter(c_kv)
+                k_nope = (c @ wk_b).reshape(B, T, Hl, dn)
+                v = (c @ wv_b).reshape(B, T, Hl, dv)
+                k = torch.cat([k_nope,
+                               shard.enter(k_rope).expand(B, T, Hl, dr)],
+                              dim=-1)
+                q = torch.cat([q_nope, q_rope], dim=-1)
+                out = _sdpa(q, k, v, causal=True, q_pos=positions,
+                            impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                            div=div)
+            return shard.reduce(out.reshape(B, T, Hl * dv) @ wo), None
+
+        # ---- decode: absorbed attention in latent space -------------
+        idx = positions[:, 0]
+        cc = _cached(cache["c_kv"], c_kv, idx)                # (B,S,L)
+        cr = _cached(cache["k_rope"], k_rope[:, :, 0, :], idx)  # (B,S,dr)
+        S = cc.shape[1]
+        spans.count("mla.cache_slots", B * S)
+        with spans.span("mla.attend", x):
+            # absorb W_uk into q: q_lat (B,T,Hl,L)
+            q_lat = torch.einsum("bthn,lhn->bthl", q_nope,
+                                 wk_b.reshape(L, Hl, dn))
+            # (B, Hl*T, L|dr) @ (B, L|dr, S): the two score products in
+            # float32
+            scores = (matmul_f32(q_lat.permute(0, 2, 1, 3).reshape(
+                          B, Hl * T, L), cc.transpose(1, 2))
+                      + matmul_f32(q_rope.permute(0, 2, 1, 3).reshape(
+                          B, Hl * T, dr), cr.transpose(1, 2))
+                      ).reshape(B, Hl, T, S)
+            scores = scores / div
+            kp = torch.arange(S, device=x.device)[None, :]
+            scores = torch.where(_causal_mask(positions, kp, idx + T), scores,
+                                 -1e30)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            o_lat = (probs.reshape(B, Hl * T, S) @ cc).reshape(B, Hl, T, L)
+            out = torch.einsum("bhtl,lhv->bthv", o_lat,
+                               wv_b.reshape(L, Hl, dv))
+        return shard.reduce(out.reshape(B, T, Hl * dv) @ wo), cache
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, device,

@@ -6,6 +6,15 @@ the port of ``repro.models.moe``.
   engine names or the port's: ``radix`` (plain-torch digit reads),
   ``pallas`` / ``fused-topk`` (the key-pack and top-k CUDA kernels on the
   card), ``lax`` / ``torch`` (the comparison baseline, a stable sort).
+  DeepSeek-V2's group-limited routing makes two selections on the same
+  engine (the top groups, then the top experts inside them), and its
+  gates are the softmax over all experts times a scale (:func:`route_topk`;
+  the config's ``n_group`` / ``topk_group`` / ``norm_topk_prob`` /
+  ``routed_scaling_factor``, which default to the top-k softmax router).
+
+* **Held experts**: a layer may hold a share of the experts it routes over
+  (``n_experts_held`` from ``first_expert_held``, one card's share of an
+  expert-parallel deployment); it computes their part of the result.
 
 * **Dispatch**: ``einsum`` (GShard one-hot dispatch, per-row capacity, the
   default) or ``sort`` (the comparison-free LSB radix sort of
@@ -51,11 +60,12 @@ ROUTER_ENGINES = {"radix": "radix", "pallas": "fused-topk", "lax": "torch",
 
 def init_moe(cfg: ArchConfig, gen, device) -> Dict:
     E, ff, d = cfg.n_routed_experts, cfg.d_ff_expert, cfg.d_model
+    held = cfg.n_experts_held or E
     p = {
         "router": _init(gen, (d, E), torch.float32, device),
-        # routed experts: stacked (E, ...) GLU weights
-        "wi": _init(gen, (E, d, 2 * ff), cfg.pdtype(), device),
-        "wo": _init(gen, (E, ff, d), cfg.pdtype(), device),
+        # routed experts: stacked (held, ...) GLU weights
+        "wi": _init(gen, (held, d, 2 * ff), cfg.pdtype(), device),
+        "wo": _init(gen, (held, ff, d), cfg.pdtype(), device),
     }
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(cfg, gen, device,
@@ -72,12 +82,50 @@ def router_engine(impl: str) -> str:
                          f"{sorted(ROUTER_ENGINES)}") from None
 
 
-def route_topk(logits: torch.Tensor, k: int, impl: str
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(gates, expert_idx): top-k softmax gates over expert logits (.., E);
-    indices int32."""
-    vals, idx = sort_engine.topk(logits, k, engine=router_engine(impl))
-    return torch.softmax(vals.float(), dim=-1), idx
+def route_topk(logits: torch.Tensor, k: int, impl: str, *,
+               n_group: int = 1, topk_group: int = 1, norm: bool = True,
+               scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates, expert_idx) over expert logits (.., E); indices int32.
+
+    By default the top k of the E logits, gated by the softmax over those
+    k.  With ``n_group`` > 1, group-limited greedy routing (DeepSeek-V2):
+    the top ``topk_group`` of the n_group equal groups of experts, each
+    scored by its best logit (the order of its best softmax score), then
+    the top k of the experts in the chosen groups, the others at -inf.
+    Both selections run on the same top-k engine (ties to the lowest
+    index).  ``norm`` False gates each chosen expert by its probability
+    under the softmax over all E logits, times ``scale``, unnormalised."""
+    engine = router_engine(impl)
+    chosen = logits
+    if n_group > 1:
+        lead, E = logits.shape[:-1], logits.shape[-1]
+        groups = logits.reshape(lead + (n_group, E // n_group))
+        _, gidx = sort_engine.topk(groups.amax(dim=-1), topk_group,
+                                   engine=engine)
+        keep = torch.zeros(lead + (n_group,), dtype=torch.bool,
+                           device=logits.device).scatter_(-1, gidx.long(),
+                                                          True)
+        chosen = logits.masked_fill(
+            ~keep.repeat_interleave(E // n_group, dim=-1), float("-inf"))
+    vals, idx = sort_engine.topk(chosen, k, engine=engine)
+    if norm:
+        return torch.softmax(vals.float(), dim=-1), idx
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.gather(probs, -1, idx.long()) * scale, idx
+
+
+def route(params: Dict, x: torch.Tensor, cfg: ArchConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(float32 router logits, gates, expert_idx) of x (.., d): the
+    router's product and :func:`route_topk` under the config's routing."""
+    with spans.span("moe.route", x):
+        logits = x.float() @ params["router"]
+        gates, idx = route_topk(logits, cfg.moe_top_k, cfg.router_impl,
+                                n_group=cfg.n_group,
+                                topk_group=cfg.topk_group,
+                                norm=cfg.norm_topk_prob,
+                                scale=cfg.routed_scaling_factor)
+        return logits, gates, idx
 
 
 def _capacity(n_tokens: int, k: int, n_experts: int,
@@ -124,8 +172,7 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: ArchConfig,
             capacity_factor = cfg.moe_capacity_factor
         B, T, d = x.shape
         E, k = cfg.n_routed_experts, cfg.moe_top_k
-        logits = x.float() @ params["router"]                  # (B, T, E)
-        gates, eidx = route_topk(logits, k, cfg.router_impl)   # (B, T, k)
+        logits, gates, eidx = route(params, x, cfg)     # (B,T,E), (B,T,k)
 
         # load-balance auxiliary loss (Switch-style): a product of means over
         # the whole batch, so under a mesh both means are taken over the data
@@ -154,14 +201,16 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: ArchConfig,
 
 def _expert_block(params, cfg: ArchConfig):
     """(first expert, wi, wo) of this rank's share of the routed experts:
-    its block of experts (expert parallel, the banks' stored shard), or
-    every expert on its block of the FFN columns (``wi``'s gate and up
-    blocks, ``wo``'s rows), or all of them on one rank."""
+    its block of the experts the layer holds (expert parallel, the banks'
+    stored shard; on one rank the layer's held share, from
+    ``first_expert_held``), or every expert on its block of the FFN
+    columns (``wi``'s gate and up blocks, ``wo``'s rows), or all of them
+    on one rank."""
     E, ff = cfg.n_routed_experts, cfg.d_ff_expert
     wi, wo = params["wi"], params["wo"]
     _, me, size = shard.model_group()
     if wi.shape[0] < E:
-        return me * wi.shape[0], wi, wo
+        return cfg.first_expert_held + me * wi.shape[0], wi, wo
     cols = shard.split(ff, size)
     return 0, shard.take(wi, -1, 2 * ff,
                          [[(a, b), (ff + a, ff + b)] for a, b in cols]), \
@@ -185,6 +234,9 @@ def _einsum_dispatch(params, x, cfg, gates, eidx, capacity_factor):
     El = wi.shape[0]
     spans.count("moe.slots", El * B * C)
     spans.count("moe.assignments", B * T * cfg.moe_top_k)
+    # what the held experts receive on average, from shapes: the held
+    # share El / E of the assignments
+    spans.count("moe.assignments_held", B * T * cfg.moe_top_k * El // E)
     with spans.span("moe.dispatch", x):
         oh_e, pos_tk, keep = dispatch_slots(eidx, E, C)
         oh_c = _one_hot(pos_tk.to(torch.int32), C) * keep[..., None]
@@ -210,6 +262,7 @@ def _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor):
     El = wi.shape[0]
     spans.count("moe.slots", El * C)
     spans.count("moe.assignments", n * k)
+    spans.count("moe.assignments_held", n * k * El // E)
     flat_e = eidx.reshape(-1).to(torch.int32)                     # (n*k,)
     flat_g = gates.reshape(-1)
     flat_t = torch.arange(n, device=dev).repeat_interleave(k)
@@ -240,15 +293,17 @@ def _sort_dispatch(params, x, cfg, gates, eidx, capacity_factor):
 
 def apply_moe_dense_ref(params: Dict, x: torch.Tensor, cfg: ArchConfig
                         ) -> torch.Tensor:
-    """Oracle: compute every expert densely and combine by gates — no
-    capacity drops.  Used by tests on tiny configs."""
+    """Oracle: compute every expert the layer holds densely and combine by
+    gates — no capacity drops.  Used by tests on tiny configs."""
     B, T, d = x.shape
     E = cfg.n_routed_experts
     xt = x.reshape(-1, d)
-    logits = xt.float() @ params["router"]
-    gates, eidx = route_topk(logits, cfg.moe_top_k, cfg.router_impl)
-    ye = _experts(params, xt.expand(E, -1, -1), cfg)              # (E, n, d)
-    w = torch.einsum("nke,nk->en", _one_hot(eidx, E), gates).to(x.dtype)
+    _, gates, eidx = route(params, xt, cfg)
+    e0, wi, wo = _expert_block(params, cfg)
+    El = wi.shape[0]
+    ye = _experts({"wi": wi, "wo": wo}, xt.expand(El, -1, -1), cfg)
+    w = torch.einsum("nke,nk->en", _one_hot(eidx, E)[..., e0:e0 + El],
+                     gates).to(x.dtype)
     y = torch.einsum("end,en->nd", ye, w)
     if cfg.n_shared_experts:
         y = y + apply_mlp(params["shared"], xt, cfg,

@@ -143,8 +143,8 @@ def test_moe_decode_step_spans_and_counters(factor):
     ev = _ours(prof)
     assert collections.Counter(e.name for e in ev) == {
         "repro_torch.attn": L, "repro_torch.moe": L,
-        "repro_torch.moe.dispatch": L, "repro_torch.moe.experts": L,
-        "repro_torch.sample": 1}
+        "repro_torch.moe.route": L, "repro_torch.moe.dispatch": L,
+        "repro_torch.moe.experts": L, "repro_torch.sample": 1}
     assert not any(e.is_user_annotation for e in ev)
     for e in ev:
         if e.name.startswith("repro_torch.moe."):
@@ -153,7 +153,36 @@ def test_moe_decode_step_spans_and_counters(factor):
     C = moe._capacity(1, k, E, factor)
     assert C == 8
     assert spans.report()["counters"] == {
-        "moe.slots": L * E * B * C, "moe.assignments": L * B * k}
+        "moe.slots": L * E * B * C, "moe.assignments": L * B * k,
+        "moe.assignments_held": L * B * k}
+
+
+def test_mla_spans_and_cache_counter():
+    """deepseek-v2's layers: ``mla`` a layer with ``mla.attend`` inside it,
+    on the prefill without a cache and on the decode step through one;
+    ``mla.cache_slots`` counts the B x S cache positions a cached call
+    reads, and the uncached forward none."""
+    cfg = configs.get_config("deepseek_v2_236b").reduced(n_layers=2)
+    params = stacked.init_params(cfg, torch.Generator().manual_seed(0),
+                                 torch.device("cpu"))
+    L, S = cfg.n_layers, 8
+    tok = torch.ones((B, 4), dtype=torch.int32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        stacked.forward(params, cfg, tok)
+    ev = _ours(prof)
+    names = collections.Counter(e.name for e in ev)
+    assert names["repro_torch.mla"] == names["repro_torch.mla.attend"] == L
+    assert all(_parent(e) == "repro_torch.mla" for e in ev
+               if e.name == "repro_torch.mla.attend")
+    assert "mla.cache_slots" not in spans.report()["counters"]
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _decode(cfg, params, 3)
+    got = spans.report()
+    assert got["spans"]["mla"]["calls"] == L
+    assert got["spans"]["mla.attend"]["parent"] == "mla"
+    assert got["counters"]["mla.cache_slots"] == L * B * S
+    assert got["spans"]["moe.route"]["calls"] == L - cfg.moe_layer_start
 
 
 def test_sort_dispatch_counts_its_slots():
@@ -169,7 +198,7 @@ def test_sort_dispatch_counts_its_slots():
     n, k, E = 2 * 5, cfg.moe_top_k, cfg.n_routed_experts
     assert spans.report()["counters"] == {
         "moe.slots": E * moe._capacity(n, k, E, 1.25),
-        "moe.assignments": n * k}
+        "moe.assignments": n * k, "moe.assignments_held": n * k}
 
 
 def test_decode_is_bit_identical_with_the_profile_on_and_off():
@@ -215,7 +244,7 @@ def test_spans_take_device_time_and_put_nothing_on_the_device(monkeypatch):
     assert on and not [n for n in on if n.startswith(spans.PREFIX)]
     got = spans.report()["spans"]
     for name in ("sort", "sort.h2d", "sort.d2h", "attn", "moe",
-                 "moe.dispatch", "moe.experts", "sample"):
+                 "moe.route", "moe.dispatch", "moe.experts", "sample"):
         assert got[name]["device_ms"] > 0, name
     for name in ("sort.encode", "sort.finish"):
         assert got[name]["device_ms"] is None, name
