@@ -19,7 +19,12 @@ the host encodes them as the reference does.
 
 Outputs are a rank ring (rank[i] = emission slot of element i, -1 if
 never emitted) and a (B, 8) counter block; the wrappers invert the ring
-into the forward permutation with a device scatter.
+into the forward permutation with a device scatter.  On the keys path
+:func:`fused_tns_sort` also hands back the keys it copied in, so that
+``sort(engine="fused-tns")`` gathers the sorted values on the device by
+that permutation and brings values, permutation and counters back into
+page-locked host memory (``sort/builtin_engines.py``); where the host
+encoded the planes, the values are gathered on the host.
 """
 from __future__ import annotations
 
@@ -59,6 +64,9 @@ class FusedOut(NamedTuple):
     useful_drs: torch.Tensor     # (B,) int32 mixed reads (caused exclusion)
     episodes: torch.Tensor       # (B,) int32 emission episodes run
     lane_episodes: torch.Tensor  # (B,) int32 alive lanes summed over them
+    # (B, N) the keys on the device as they were copied in, on the keys
+    # path of fused_tns_sort; None where the host encoded the planes
+    keys: Optional[torch.Tensor] = None
 
 
 def _shl1(shift: torch.Tensor) -> torch.Tensor:
@@ -382,7 +390,8 @@ def fused_tns_sort(values, *, width: int, k: int, fmt: str = bp.UNSIGNED,
     16) and no fault hook is installed, the keys go to the device and
     :func:`planes_from_keys` encodes them there.  Otherwise the host
     encodes the bit-planes and reads them through the fault-injectable
-    ``bitplane.read_planes``, which a fault hook corrupts."""
+    ``bitplane.read_planes``, which a fault hook corrupts.  The keys
+    path's result carries the device keys in ``keys``."""
     if level_bits != 1:
         raise NotImplementedError(
             "fused TNS runs binary (level_bits=1) planes; multi-level "
@@ -410,7 +419,9 @@ def fused_tns_sort(values, *, width: int, k: int, fmt: str = bp.UNSIGNED,
             keys_t = torch.from_numpy(keys).to(dev)
         planes, sign_t = planes_from_keys(keys_t, width, fmt)
     else:
+        keys_t = None
         with spans.span("sort.h2d", dev):
             planes, sign_t = bp.planes_from_numpy(digits, sign, device=dev)
-    return fused_tns_planes(planes, sign_t, k=k, fmt=fmt,
-                            ascending=ascending, stop_after=stop_after)
+    out = fused_tns_planes(planes, sign_t, k=k, fmt=fmt,
+                           ascending=ascending, stop_after=stop_after)
+    return out._replace(keys=keys_t)

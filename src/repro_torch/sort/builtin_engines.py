@@ -160,11 +160,38 @@ def _bitslice(x, *, width, fmt, k, ascending, level_bits, stop_after,
                    strategy="bs")
 
 
+# the keys are gathered as the signed integers of their width: bits, not
+# values (a float gather may quiet a signalling NaN; torch has no gather
+# for uint16 or uint32)
+_BITS_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def _host_buffers(tensors):
+    """Where each tensor lands on the host: for a CUDA tensor a page-locked
+    buffer of its own from torch's caching host allocator, for a CPU one
+    the tensor itself.  A numpy view of a buffer keeps it alive, so no
+    later call is handed it while a result still holds the view."""
+    return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if t.is_cuda else t for t in tensors]
+
+
+def _land(bufs, tensors) -> None:
+    """Fill the host buffers from their CUDA tensors: a non-blocking copy
+    each on the current stream, then one wait for that stream."""
+    moved = [(b, t) for b, t in zip(bufs, tensors) if b is not t]
+    for b, t in moved:
+        b.copy_(t, non_blocking=True)
+    if moved:
+        torch.cuda.current_stream(moved[0][1].device).synchronize()
+
+
 @register("fused-tns", mode="throughput", strategy="tns",
           supports_stop_after=True, supports_batch=True,
           description="Fused TNS pipeline: digit read + tree-node skipping "
                       "+ winner write-back in one CUDA kernel; cycle/DR "
-                      "parity with the paper's controller")
+                      "parity with the paper's controller; keys encoded "
+                      "and values gathered on the device where the input "
+                      "allows, the result copied back pinned")
 def _fused_tns(x, *, width, fmt, k, ascending, level_bits, stop_after,
                device):
     if level_bits != 1:
@@ -185,17 +212,48 @@ def _fused_tns(x, *, width, fmt, k, ascending, level_bits, stop_after,
             "fused-tns packs a lane's digit column into one int32 key; "
             "width <= 30 required (32-bit data stays on the while_loop "
             "machines)")
+    if stop_after is not None and stop_after < 0:
+        raise ValueError(f"stop_after must be >= 0, got {stop_after}")
     out = fused_tns.fused_tns_sort(
         xb, width=width, k=k, fmt=fmt, ascending=ascending,
         stop_after=stop_after, device=device)
+    counters = (out.cycles, out.drs, out.reload_cycles)
+    if out.keys is None:
+        # the host encoded the planes and the keys never left it: the
+        # values are gathered there
+        with spans.span("sort.d2h", out.perm):
+            dev = (out.perm, torch.stack(counters))
+            host = _host_buffers(dev)
+            _land(host, dev)
+        perm, cnt = (h.numpy() for h in host)
+        if squeeze:
+            perm, cnt = perm[0], cnt[:, 0]
+        return _finish(x, perm, engine="fused-tns", fmt=fmt, width=width,
+                       k=k, stop_after=stop_after, cycles=cnt[0],
+                       drs=cnt[1], reload_cycles=cnt[2], strategy="tns")
+    # the keys path: the values are gathered on the keys' device by the
+    # emission order's first m slots (all filled), and the whole result
+    # lands in host buffers of its own
+    m = n if stop_after is None else min(stop_after, n)
+    spans.count("sort.assemble_on_device", xb.shape[0])
+    with spans.span("sort.finish"):
+        perm = out.perm[:, :m]
+        keys = out.keys.view(_BITS_OF_WIDTH[out.keys.element_size()])
+        dev = (perm, keys.gather(1, perm), torch.stack(counters))
+        host = _host_buffers(dev)
+        idx, vals, cnt = (h.numpy() for h in host)
+        vals = vals.view(xb.dtype)
+        if squeeze:
+            idx, vals, cnt = idx[0], vals[0], cnt[:, 0]
+        # views of the host buffers (a bank's counters as 0-d views),
+        # which the copies below fill before the result is handed out
+        res = SortResult(values=vals, indices=idx, engine="fused-tns",
+                         fmt=fmt, width=width, n=n, cycles=cnt[0, ...],
+                         drs=cnt[1, ...], reload_cycles=cnt[2, ...],
+                         strategy="tns", k=k, level_bits=level_bits)
     with spans.span("sort.d2h", out.perm):
-        perm, cycles, drs, rlc = (t.cpu().numpy() for t in (
-            out.perm, out.cycles, out.drs, out.reload_cycles))
-    if squeeze:
-        perm, cycles, drs, rlc = perm[0], cycles[0], drs[0], rlc[0]
-    return _finish(x, perm, engine="fused-tns", fmt=fmt, width=width,
-                   k=k, stop_after=stop_after, cycles=cycles, drs=drs,
-                   reload_cycles=rlc, strategy="tns")
+        _land(host, dev)
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,9 @@ from repro_torch.core import ref_tns
 from repro_torch.kernels import digit_read, fused_tns
 from repro_torch.runtime import faults, spans
 
+import _sort_assembly as assembly
+from _sort_assembly import keys as _keys
+
 FMT_DATA = {
     bp.UNSIGNED: (lambda r, s: r.integers(0, 256, s).astype(np.uint8), 8),
     bp.TWOS: (lambda r, s: r.integers(-128, 128, s).astype(np.int8), 8),
@@ -298,28 +301,6 @@ KEY_CELLS = [(np.dtype(t).name, fmt, w) for t in _INT_KEYS
 KEY_CELLS.append(("float16", bp.FLOAT, 16))
 
 
-def _keys(dtype, shape, seed):
-    """Random keys over the container's whole range with its extremes
-    (min, max, 0, -1 and -0 where they exist) in every row; float16 also
-    with +-inf, NaNs and subnormals."""
-    rng = np.random.default_rng(seed)
-    dt = np.dtype(dtype)
-    if dt == np.float16:
-        x = rng.integers(0, 1 << 16, shape).astype(np.uint16).view(
-            np.float16)
-        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan,
-                            6e-8, -6e-8, 65504, -65504], np.float16)
-        special = np.concatenate([special, np.array(
-            [0x7C01, 0xFE00], np.uint16).view(np.float16)])
-    else:
-        info = np.iinfo(dt)
-        x = rng.integers(info.min, info.max, shape, endpoint=True).astype(dt)
-        special = np.array(sorted({info.min, info.max, 0, 1, info.min + 1,
-                                   -1 if info.min else 2}), dt)
-    x[..., :special.size] = special[:x.shape[-1]]
-    return x
-
-
 @pytest.mark.parametrize("dtype,fmt,width", KEY_CELLS,
                          ids=[f"{d}-{f}-W{w}" for d, f, w in KEY_CELLS])
 def test_device_encode_equals_the_host_encode(dtype, fmt, width):
@@ -424,6 +405,24 @@ def test_sort_takes_the_keys_path_where_the_input_allows(case,
         np.testing.assert_array_equal(got.indices, want)
 
 
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("stop", assembly.STOPS)
+@pytest.mark.parametrize("shape", assembly.SHAPES, ids=["1d", "2d"])
+@pytest.mark.parametrize("dtype", list(assembly.KEYS))
+def test_result_assembled_on_the_keys_device(dtype, shape, stop, device,
+                                             request):
+    # on the card through tests/test_torch_kernels_cuda.py, which imports
+    # no JAX
+    dev = (torch.device("cpu") if device == "cpu"
+           else request.getfixturevalue("cuda_device"))
+    assembly.check_assembled(dtype, shape, stop, dev)
+
+
+def test_a_held_result_keeps_its_arrays():
+    assembly.check_held(torch.device("cpu"))
+
+
 def test_sort_wrapper_guards():
     x = np.zeros((2, 4), np.uint8)
     with pytest.raises(NotImplementedError):
@@ -431,6 +430,8 @@ def test_sort_wrapper_guards():
                                  device="cpu")
     with pytest.raises(ValueError):
         fused_tns.fused_tns_sort(x[0], width=8, k=2, device="cpu")
+    with pytest.raises(ValueError):     # an index gathered on the device
+        sort.sort(x, engine="fused-tns", stop_after=-1, device="cpu")
 
 
 def test_rank_to_perm_inverts_the_ring():

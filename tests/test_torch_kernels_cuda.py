@@ -19,6 +19,8 @@ from repro_torch.kernels import (bitplane_pack, digit_read, fused_tns,
                                  masked_matmul, ops, radix_topk, ref)
 from repro_torch.runtime import faults
 
+import _sort_assembly as assembly
+
 
 def _keys(shape, seed):
     return np.random.default_rng(seed).integers(0, 2**32, shape,
@@ -131,6 +133,21 @@ def test_fused_tns_sort_encodes_on_card_at_the_cells_size(cuda_device):
             assert np.array_equal(getattr(got, f), getattr(want, f)), f
     assert np.array_equal(tsort.sort(x, engine="fused-tns", k=2).indices,
                           np.argsort(x, axis=1, kind="stable"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", assembly.STOPS)
+@pytest.mark.parametrize("shape", assembly.SHAPES, ids=["1d", "2d"])
+@pytest.mark.parametrize("dtype", list(assembly.KEYS))
+def test_sort_assembles_its_result_on_card(cuda_device, dtype, shape, stop):
+    # the values gathered on the card by the permutation, the result back
+    # in page-locked buffers: the host-encoded path's in every field
+    assembly.check_assembled(dtype, shape, stop, cuda_device)
+
+
+@pytest.mark.cuda
+def test_a_held_result_keeps_its_pinned_arrays_on_card(cuda_device):
+    assembly.check_held(cuda_device)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs, sort
+from repro_torch.core import bitplane as bp
 from repro_torch.launch import steps
 from repro_torch.models import moe, sampling, stacked
 from repro_torch.runtime import spans
@@ -68,7 +69,8 @@ def test_sort_spans_nest_under_the_facade():
         assert _parent(e) == (None if e.name == "repro_torch.sort"
                               else "repro_torch.sort")
     rep = spans.report()
-    assert rep["counters"] == {"sort.encode_on_card": 3}   # the banks
+    assert rep["counters"] == {"sort.encode_on_card": 3,    # the banks
+                               "sort.assemble_on_device": 3}
     got = rep["spans"]
     assert {n: s["calls"] for n, s in got.items()} == dict.fromkeys(
         SORT_SPANS, 1)
@@ -79,6 +81,22 @@ def test_sort_spans_nest_under_the_facade():
     assert got["sort"]["host_self_ms"] == pytest.approx(
         got["sort"]["host_ms"] - inner, abs=1e-9)
     assert 0 < inner < got["sort"]["host_ms"]
+
+
+def test_sort_spans_on_the_host_encode_path():
+    # under a read hook the host encodes the planes and gathers the
+    # values: the same spans, once each under the facade, and no counter
+    prev = bp.set_read_hook(lambda planes, **_: planes)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            sort.sort(_keys(1), engine="fused-tns", k=2, device="cpu")
+    finally:
+        bp.set_read_hook(prev)
+    rep = spans.report()
+    assert rep["counters"] == {}
+    assert {n: (s["calls"], s["parent"]) for n, s in rep["spans"].items()
+            } == dict(dict.fromkeys(SORT_SPANS[1:], (1, "sort")),
+                      sort=(1, None))
 
 
 def test_self_time_parent_and_counts_of_nested_spans():
