@@ -11,26 +11,27 @@ a warp vote where the TPU kernel takes an argmin over per-lane keys.
 over (B, W, ceil(N/32)) words with a Python loop, run for CPU tensors and
 as the comparison point on the card.
 
-:func:`fused_tns_sort` programs the array on the device where it can: the
-keys go there as they are and :func:`planes_from_keys` builds their
-bit-planes with torch shifts, so that the host writes no planes; under a
-fault hook, or for keys whose container is not their own raw-bit image,
-the host encodes them as the reference does.
+:func:`fused_tns_sort` programs the array on the device: the keys go there
+as they are and :func:`planes_from_keys` builds their bit-planes with torch
+shifts; where the format converts values (a float narrowed to FLOAT/16, an
+integer read as a float, a float read as an integer) the host's
+``bp.raw_bits`` go with them, since torch's casts round some NaN payloads
+and float64 values otherwise than numpy's.  A fault hook reads the planes
+on the host between the encode and the kernel.
 
 Outputs are a rank ring (rank[i] = emission slot of element i, -1 if
 never emitted) and a (B, 8) counter block; the wrappers invert the ring
-into the forward permutation with a device scatter.  On the keys path
-:func:`fused_tns_sort` also hands back the keys it copied in, so that
-``sort(engine="fused-tns")`` gathers the sorted values on the device by
-that permutation and brings values, permutation and counters back into
-page-locked host memory (``sort/builtin_engines.py``); where the host
-encoded the planes, the values are gathered on the host.
+into the forward permutation with a device scatter.  :func:`fused_tns_sort`
+also hands back the keys it copied in, so that ``sort(engine="fused-tns")``
+gathers the sorted values on the device by that permutation and brings
+values, permutation and counters back into page-locked host memory
+(``sort/builtin_engines.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,10 +51,6 @@ _FMT_CODE = {bp.UNSIGNED: 0, bp.TWOS: 1, bp.SIGNMAG: 2, bp.FLOAT: 3}
 MAX_N = 1 << 15    # exclusive: a bank's columns fit one block's smem
 MAX_WIDTH = 30     # the reference's bound: its keys are int32 words
 _WORD = 0xFFFFFFFF  # the plain version's 32-bit words, held in int64
-# host dtypes that ``planes_from_keys`` takes as they are (native order)
-_HOST_KEYS = frozenset(np.dtype(t) for t in (
-    np.uint8, np.int8, np.uint16, np.float16, np.int16, np.uint32,
-    np.int32))
 
 
 class FusedOut(NamedTuple):
@@ -64,9 +61,6 @@ class FusedOut(NamedTuple):
     useful_drs: torch.Tensor     # (B,) int32 mixed reads (caused exclusion)
     episodes: torch.Tensor       # (B,) int32 emission episodes run
     lane_episodes: torch.Tensor  # (B,) int32 alive lanes summed over them
-    # (B, N) the keys on the device as they were copied in, on the keys
-    # path of fused_tns_sort; None where the host encoded the planes
-    keys: Optional[torch.Tensor] = None
 
 
 def _shl1(shift: torch.Tensor) -> torch.Tensor:
@@ -253,35 +247,36 @@ def fused_tns_rank_ref(planes: torch.Tensor,
     return rank, cnt.to(torch.int32)
 
 
-def _keys_fit(float16: bool, width: int, fmt: str) -> bool:
-    """Whether ``bp.raw_bits`` takes keys of an integer (or the float16)
-    container as :func:`planes_from_keys` reads them: integers under every
-    format but FLOAT, float16 under FLOAT at width 16 (anything else
-    converts values)."""
-    return fmt == bp.FLOAT and width == 16 if float16 else fmt != bp.FLOAT
-
-
-def planes_from_keys(keys: torch.Tensor, width: int, fmt: str):
+def planes_from_keys(keys: torch.Tensor, width: int, fmt: str, *,
+                     raw: bool = False):
     """The array image of (B, N) keys on their device: (planes (B, W, N)
-    uint8, sign (B, N) uint8 or None), equal to ``bp.to_bitplanes`` and
-    ``bp.sign_plane``: each key widened to int32 (signed containers
-    sign-extend, uint8, uint16 and float16's bits zero-extend, uint32 keeps
-    its bits), its raw W bits (the low W, or the sign at W-1 over
-    ``|x| & mask(W-1)``; INT32_MIN's wrapped ``abs`` has the same low
-    bits), MSB first; the sign of the signed formats is the MSB plane."""
+    uint8, sign (B, N) uint8 or None), equal to the host encoders'
+    ``to_bitplanes`` and ``sign_plane``.  Each key is widened to int32, or
+    int64 from an 8-byte container: signed containers sign-extend, uint8,
+    uint16, float16's bits and bool zero-extend, uint32 and uint64 keep
+    their bits (``bp.raw_bits`` reads uint64 through int64 too).  Its raw
+    W bits are the low W, or under SIGNMAG the sign at W-1 over ``|x| &
+    mask(W-1)`` (the wrapped ``abs`` of a container's minimum has the same
+    low bits); ``raw`` keys are ``bp.raw_bits`` already and are taken as
+    they are.  MSB first; the sign of the signed formats is the MSB
+    plane."""
     if keys.dtype in (torch.uint16, torch.float16):
         u = keys.view(torch.int16).to(torch.int32) & 0xFFFF
-    elif keys.dtype == torch.uint32:
-        u = keys.view(torch.int32)
+    elif keys.dtype in (torch.uint32, torch.uint64, torch.int64):
+        u = keys.view(torch.int32 if keys.element_size() == 4
+                      else torch.int64)
     else:
         u = keys.to(torch.int32)
     mask = (1 << width) - 1
-    if fmt == bp.SIGNMAG and keys.dtype.is_signed:
-        u = (((u < 0).to(torch.int32) << (width - 1))
-             | (u.abs() & (mask >> 1)))
+    if fmt == bp.SIGNMAG and not raw:
+        if keys.dtype.is_signed or keys.dtype == torch.uint64:
+            u = (((u < 0).to(u.dtype) << (width - 1))
+                 | (u.abs() & (mask >> 1)))
+        else:
+            u = u & (mask >> 1)
     else:
-        u = u & (mask >> 1 if fmt == bp.SIGNMAG else mask)
-    shifts = torch.arange(width - 1, -1, -1, dtype=torch.int32,
+        u = u & mask
+    shifts = torch.arange(width - 1, -1, -1, dtype=u.dtype,
                           device=keys.device)
     planes = (u[:, None, :] >> shifts[:, None]).to(torch.uint8) & 1
     sign = (planes[:, 0].contiguous()
@@ -381,47 +376,51 @@ def fused_tns_planes(planes: torch.Tensor,
 def fused_tns_sort(values, *, width: int, k: int, fmt: str = bp.UNSIGNED,
                    ascending: bool = True, level_bits: int = 1,
                    stop_after: Optional[int] = None,
-                   device=None) -> FusedOut:
+                   device=None) -> Tuple[FusedOut, torch.Tensor]:
     """Program a (B, N) host batch into the memristor array on ``device``
-    (the card unless named) and run the fused controller.
+    (the card unless named) and run the fused controller: the controller's
+    output and the (B, N) keys on the device, as they were copied in.
 
-    Where the array image is ``bp.raw_bits`` of the keys as they are (an
-    integer container of up to 32 bits, or float16 under FLOAT at width
-    16) and no fault hook is installed, the keys go to the device and
-    :func:`planes_from_keys` encodes them there.  Otherwise the host
-    encodes the bit-planes and reads them through the fault-injectable
-    ``bitplane.read_planes``, which a fault hook corrupts.  The keys
-    path's result carries the device keys in ``keys``."""
+    The keys go to the device as they are and :func:`planes_from_keys`
+    encodes them there.  Where the format converts values, the host's
+    ``bp.raw_bits`` are copied in beside them and encoded instead.  Under
+    a fault hook the planes are read on the host through ``read_planes``,
+    which the hook corrupts; the sign plane is not read."""
     if level_bits != 1:
         raise NotImplementedError(
-            "fused TNS runs binary (level_bits=1) planes; multi-level "
-            "stays on the while_loop machine")
+            "fused-tns runs binary (level_bits=1) planes; multi-level "
+            "stays on the 'ml' while_loop machine")
     x = np.asarray(values)
     if x.ndim != 2:
         raise ValueError(f"fused_tns_sort expects a (B, N) batch, "
                          f"got shape {x.shape}")
+    if x.shape[1] >= MAX_N:
+        raise NotImplementedError(
+            "fused-tns supports N < 32768 per bank (one bank's keys live "
+            "in one thread block's shared memory)")
+    if width > MAX_WIDTH:
+        raise NotImplementedError(
+            "fused-tns packs a lane's digit column into one int32 key; "
+            "width <= 30 required (32-bit data stays on the while_loop "
+            "machines)")
+    if stop_after is not None and stop_after < 0:
+        raise ValueError(f"stop_after must be >= 0, got {stop_after}")
     dev = backend.resolve_device(device)
     with spans.span("sort.encode"):
-        on_device = (x.dtype in _HOST_KEYS
-                     and _keys_fit(x.dtype == np.float16, width, fmt)
-                     and bp.read_hook() is None)
-        if on_device:
-            keys = np.require(x, requirements=("C", "A", "W"))
-        else:
-            digits = bp.read_planes(bp.to_bitplanes(x, width, fmt),
-                                    kind="bit", level_bits=1)
-            digits = (np.asarray(digits) != 0).astype(np.uint8)
-            sign = (bp.sign_plane(x, width, fmt)
-                    if fmt in (bp.SIGNMAG, bp.FLOAT) else None)
-    if on_device:
-        spans.count("sort.encode_on_card", x.shape[0])
-        with spans.span("sort.h2d", dev):
-            keys_t = torch.from_numpy(keys).to(dev)
-        planes, sign_t = planes_from_keys(keys_t, width, fmt)
-    else:
-        keys_t = None
-        with spans.span("sort.h2d", dev):
-            planes, sign_t = bp.planes_from_numpy(digits, sign, device=dev)
-    out = fused_tns_planes(planes, sign_t, k=k, fmt=fmt,
-                           ascending=ascending, stop_after=stop_after)
-    return out._replace(keys=keys_t)
+        keys = np.require(x, x.dtype.newbyteorder("="), ("C", "A", "W"))
+        as_is = (x.dtype == np.float16 and width == 16 if fmt == bp.FLOAT
+                 else x.dtype.kind in "biu")
+        raw = None if as_is else bp.raw_bits(x, width, fmt)
+    with spans.span("sort.h2d", dev):
+        keys_t = torch.from_numpy(keys).to(dev)
+        raw_t = None if as_is else torch.from_numpy(raw).to(dev)
+    planes, sign = planes_from_keys(keys_t if as_is else raw_t, width, fmt,
+                                    raw=not as_is)
+    if bp.read_hook() is not None:
+        digits = bp.read_planes(planes.cpu().numpy(), kind="bit",
+                                level_bits=1)
+        planes = torch.from_numpy(
+            (np.asarray(digits) != 0).astype(np.uint8)).to(dev)
+    out = fused_tns_planes(planes, sign, k=k, fmt=fmt, ascending=ascending,
+                           stop_after=stop_after)
+    return out, keys_t

@@ -162,8 +162,9 @@ def _bitslice(x, *, width, fmt, k, ascending, level_bits, stop_after,
 
 # the keys are gathered as the signed integers of their width: bits, not
 # values (a float gather may quiet a signalling NaN; torch has no gather
-# for uint16 or uint32)
-_BITS_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+# for bool, uint16, uint32 or uint64)
+_BITS_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                  8: torch.int64}
 
 
 def _host_buffers(tensors):
@@ -190,59 +191,30 @@ def _land(bufs, tensors) -> None:
           description="Fused TNS pipeline: digit read + tree-node skipping "
                       "+ winner write-back in one CUDA kernel; cycle/DR "
                       "parity with the paper's controller; keys encoded "
-                      "and values gathered on the device where the input "
-                      "allows, the result copied back pinned")
+                      "and values gathered on the device, the result "
+                      "copied back pinned")
 def _fused_tns(x, *, width, fmt, k, ascending, level_bits, stop_after,
                device):
-    if level_bits != 1:
-        raise NotImplementedError(
-            "fused-tns runs binary (level_bits=1) planes; multi-level "
-            "stays on the 'ml' while_loop machine")
     xb = np.asarray(x)
     squeeze = xb.ndim == 1
     if squeeze:
         xb = xb[None]
-    n = xb.shape[1]
-    if n >= fused_tns.MAX_N:
-        raise NotImplementedError(
-            "fused-tns supports N < 32768 per bank (one bank's keys live "
-            "in one thread block's shared memory)")
-    if width > fused_tns.MAX_WIDTH:
-        raise NotImplementedError(
-            "fused-tns packs a lane's digit column into one int32 key; "
-            "width <= 30 required (32-bit data stays on the while_loop "
-            "machines)")
-    if stop_after is not None and stop_after < 0:
-        raise ValueError(f"stop_after must be >= 0, got {stop_after}")
-    out = fused_tns.fused_tns_sort(
+    out, keys = fused_tns.fused_tns_sort(
         xb, width=width, k=k, fmt=fmt, ascending=ascending,
-        stop_after=stop_after, device=device)
-    counters = (out.cycles, out.drs, out.reload_cycles)
-    if out.keys is None:
-        # the host encoded the planes and the keys never left it: the
-        # values are gathered there
-        with spans.span("sort.d2h", out.perm):
-            dev = (out.perm, torch.stack(counters))
-            host = _host_buffers(dev)
-            _land(host, dev)
-        perm, cnt = (h.numpy() for h in host)
-        if squeeze:
-            perm, cnt = perm[0], cnt[:, 0]
-        return _finish(x, perm, engine="fused-tns", fmt=fmt, width=width,
-                       k=k, stop_after=stop_after, cycles=cnt[0],
-                       drs=cnt[1], reload_cycles=cnt[2], strategy="tns")
-    # the keys path: the values are gathered on the keys' device by the
-    # emission order's first m slots (all filled), and the whole result
-    # lands in host buffers of its own
+        level_bits=level_bits, stop_after=stop_after, device=device)
+    # the values are gathered on the keys' device by the emission order's
+    # first m slots (all filled), and the whole result lands in host
+    # buffers of its own
+    n = xb.shape[1]
     m = n if stop_after is None else min(stop_after, n)
-    spans.count("sort.assemble_on_device", xb.shape[0])
     with spans.span("sort.finish"):
         perm = out.perm[:, :m]
-        keys = out.keys.view(_BITS_OF_WIDTH[out.keys.element_size()])
-        dev = (perm, keys.gather(1, perm), torch.stack(counters))
+        bits = keys.view(_BITS_OF_WIDTH[keys.element_size()])
+        dev = (perm, bits.gather(1, perm),
+               torch.stack((out.cycles, out.drs, out.reload_cycles)))
         host = _host_buffers(dev)
         idx, vals, cnt = (h.numpy() for h in host)
-        vals = vals.view(xb.dtype)
+        vals = vals.view(xb.dtype.newbyteorder("="))
         if squeeze:
             idx, vals, cnt = idx[0], vals[0], cnt[:, 0]
         # views of the host buffers (a bank's counters as 0-d views),

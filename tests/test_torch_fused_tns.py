@@ -10,7 +10,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from repro.core import bitplane as jbp
 from repro.kernels import digit_read as jdr
@@ -19,7 +18,7 @@ from repro_torch import sort
 from repro_torch.core import bitplane as bp
 from repro_torch.core import ref_tns
 from repro_torch.kernels import digit_read, fused_tns
-from repro_torch.runtime import faults, spans
+from repro_torch.runtime import faults
 
 import _sort_assembly as assembly
 from _sort_assembly import keys as _keys
@@ -292,9 +291,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 # the device encode's inputs: every integer container under every format
-# but FLOAT at W = 1, 8, 16 and 30 where the container holds W bits, and
-# float16 under FLOAT at 16
-_INT_KEYS = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
+# but FLOAT at W = 1, 8, 16 and 30 where the container holds W bits, bool
+# at 1 and 8, and float16 under FLOAT at 16
+_INT_KEYS = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32,
+             np.int64, np.uint64, np.bool_)
 KEY_CELLS = [(np.dtype(t).name, fmt, w) for t in _INT_KEYS
              for fmt in (bp.UNSIGNED, bp.TWOS, bp.SIGNMAG)
              for w in (1, 8, 16, 30) if w <= 8 * np.dtype(t).itemsize]
@@ -305,8 +305,8 @@ KEY_CELLS.append(("float16", bp.FLOAT, 16))
                          ids=[f"{d}-{f}-W{w}" for d, f, w in KEY_CELLS])
 def test_device_encode_equals_the_host_encode(dtype, fmt, width):
     # the device encode is to_bitplanes / sign_plane bit for bit,
-    # the port's and the reference's: negative ints, INT32_MIN under
-    # sign-magnitude, float16 -0, +-inf and NaN
+    # the port's and the reference's: negative ints, a container's minimum
+    # under sign-magnitude, uint64 past 2**63, float16 -0, +-inf and NaN
     x = _keys(dtype, (3, 70), seed=width + len(fmt))
     planes, sign = fused_tns.planes_from_keys(torch.from_numpy(x), width,
                                               fmt)
@@ -330,9 +330,10 @@ SORT_KEYS = {bp.UNSIGNED: (np.uint8, 8), bp.TWOS: (np.int16, 16),
 @pytest.mark.parametrize("fmt", list(SORT_KEYS))
 @pytest.mark.parametrize("n", [31, 32, 33, 1023, 1024, 1025])
 def test_sort_keys_path_equals_host_path(fmt, n):
-    # the same SortResult whether the keys or the host's planes go in: the
-    # host path is forced by a fault hook that injects nothing; full sorts
-    # at a word's edge, the first 40 past a warp's 32 words, both ways
+    # a sort through a fault hook that injects nothing (the planes go to
+    # the host, through the hook and back) is the sort without one, in
+    # every SortResult field: full sorts at a word's edge, the first 40
+    # past a warp's 32 words, both ways
     dtype, width = SORT_KEYS[fmt]
     x = _keys(dtype, (2, n), seed=n)
     x[1, n // 2:] = x[1, 0]                      # a tie set across words
@@ -340,39 +341,41 @@ def test_sort_keys_path_equals_host_path(fmt, n):
         kw = dict(engine="fused-tns", fmt=fmt, width=width, k=2,
                   ascending=ascending, stop_after=stop, device="cpu")
         got = sort.sort(x, **kw)
-        with faults.inject(faults.FaultSpec()):
+        with faults.inject(faults.FaultSpec()) as inj:
             want = sort.sort(x, **kw)
+        assert inj.counters.reads == 1
         for f in SORT_FIELDS:
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                           err_msg=f"{f} {ascending} {stop}")
 
 
-# case -> (container, sort()'s format and width, whether the keys go to
-# the device as they are)
+# case -> (container, sort()'s format and width, whether the host takes
+# the keys' raw bits: only where the format converts values)
 PATH_CASES = {
-    "uint8": (np.uint8, {}, True),
-    "int16-signmag": (np.int16, dict(fmt=bp.SIGNMAG), True),
-    "float16": (np.float16, {}, True),
+    "uint8": (np.uint8, {}, False),
+    "int16-signmag": (np.int16, dict(fmt=bp.SIGNMAG), False),
+    "float16": (np.float16, {}, False),
     "under-a-hook": (np.uint8, {}, False),
     "uint64": (np.uint64, {}, False),
-    "float32-at-16": (np.float32, dict(width=16), False),
-    "int8": (np.int8, {}, True),
-    "uint16": (np.uint16, {}, True),
-    "uint32-at-30": (np.uint32, dict(width=30), True),
-    "int32-signmag-at-30": (np.int32, dict(fmt=bp.SIGNMAG, width=30), True),
+    "float32-at-16": (np.float32, dict(width=16), True),
+    "int8": (np.int8, {}, False),
+    "uint16": (np.uint16, {}, False),
+    "uint32-at-30": (np.uint32, dict(width=30), False),
+    "int32-signmag-at-30": (np.int32, dict(fmt=bp.SIGNMAG, width=30), False),
     "float16-under-a-hook": (np.float16, {}, False),
     "int64": (np.int64, {}, False),
     "bool": (np.bool_, {}, False),
+    "uint16-big-endian": (np.dtype(">u2"), {}, False),
 }
 
 
 @pytest.mark.parametrize("case", list(PATH_CASES))
 def test_sort_takes_the_keys_path_where_the_input_allows(case,
                                                          monkeypatch):
-    # the keys path counts its banks and runs no host encode; under a
-    # fault hook, and for 64-bit or bool containers or float32 narrowed to
-    # 16 bits, the host encodes and the hook reads the planes
-    dtype, fmt_width, on_card = PATH_CASES[case]
+    # every input takes the one path: the keys go to the device and no
+    # host encode runs; the host takes raw bits only for float32 narrowed
+    # to 16 bits; a fault hook reads the planes once, where it is installed
+    dtype, fmt_width, host_bits = PATH_CASES[case]
     kw = dict(engine="fused-tns", k=2, device="cpu", **fmt_width)
     if dtype == np.float32:
         x = _keys(np.float16, (3, 40), seed=4).astype(np.float32)
@@ -382,21 +385,16 @@ def test_sort_takes_the_keys_path_where_the_input_allows(case,
         x = _keys(dtype, (3, 40), seed=len(case))
         if dtype in (np.uint32, np.int32):
             x = x // 8              # magnitudes within 29 bits
-    encodes = []
-    host_encode = bp.to_bitplanes
-    monkeypatch.setattr(bp, "to_bitplanes", lambda *a, **k: (
-        encodes.append(a[1:]), host_encode(*a, **k))[1])
+    calls = []
+    for name in ("to_bitplanes", "raw_bits"):
+        fn = getattr(bp, name)
+        monkeypatch.setattr(bp, name, lambda *a, _n=name, _f=fn, **k: (
+            calls.append(_n), _f(*a, **k))[1])
     hook = (faults.inject(faults.FaultSpec(ber=0.05, seed=5))
             if case.endswith("under-a-hook") else contextlib.nullcontext())
-    spans.reset()
-    try:
-        with profile(activities=[ProfilerActivity.CPU]), hook as inj:
-            got = sort.sort(x, **kw)
-        counters = spans.report()["counters"]
-    finally:
-        spans.reset()
-    assert counters.get("sort.encode_on_card", 0) == (3 if on_card else 0)
-    assert len(encodes) == (0 if on_card else 1)
+    with hook as inj:
+        got = sort.sort(x, **kw)
+    assert calls == (["raw_bits"] if host_bits else [])
     if inj is not None:
         assert inj.counters.reads == 1 and inj.counters.faults_injected > 0
     else:

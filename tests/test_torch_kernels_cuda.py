@@ -118,8 +118,8 @@ def test_fused_tns_device_encode_on_card(cuda_device, fmt, dtype, width, n):
 def test_fused_tns_sort_encodes_on_card_at_the_cells_size(cuda_device):
     # the benchmark's call: (4096, 1024) uint8 at W = 8, k = 2, unsigned;
     # sort() encodes on the card, launches the kernel once, and returns
-    # the host-encoded path's SortResult (forced by a hook that injects
-    # nothing) in every field, both ways
+    # the SortResult of the same sort through a hook that injects nothing
+    # in every field, both ways
     x = np.random.default_rng(12).integers(0, 256, (4096, 1024)).astype(
         np.uint8)
     for ascending in (True, False):
@@ -141,7 +141,8 @@ def test_fused_tns_sort_encodes_on_card_at_the_cells_size(cuda_device):
 @pytest.mark.parametrize("dtype", list(assembly.KEYS))
 def test_sort_assembles_its_result_on_card(cuda_device, dtype, shape, stop):
     # the values gathered on the card by the permutation, the result back
-    # in page-locked buffers: the host-encoded path's in every field
+    # in page-locked buffers: every container, in every field the sort's
+    # through a hook that injects nothing
     assembly.check_assembled(dtype, shape, stop, cuda_device)
 
 
