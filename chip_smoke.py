@@ -193,6 +193,13 @@ order; any failure raises and exits non-zero:
       equal wherever the lint resolves a figure; the lint's opt-in and
       static limits equal to the card's; the trace gate on the card, every
       case passing, every kernel target launched for real;
+   w. the decode-attention kernel (``kernels/decode_attn.py``) at
+      qwen2-moe's decode cell (64 rows over 2560 slots, 16 heads of 128,
+      each row at 2048 + 32..512, bf16) and at a GQA-8 head-128 shape,
+      within one ulp of its plain version at each (row, head)'s largest
+      output, timed beside its bytes bound (the filled positions' k and v
+      read once), the plain version and ``scaled_dot_product_attention``
+      as ``library_ms``; at the cell's shape at least 60 % of the bound;
 5. times (CUDA events after warm-up) beside the least time the card could
    take (bytes over 3.35 TB/s, integer operations over 67 T/s, bfloat16
    tensor-core operations over 989 T/s, the larger; the fused TNS kernel's
@@ -441,6 +448,15 @@ CLI_ARCHS = (("mamba2_1_3b", 4), ("zamba2_2_7b", 12), ("musicgen_medium", 24))
 SSM_PREFILL_LAYERS, SSM_PREFILL_TOL = 2, 1e-3
 GATE = 0.5          # the cross-attention gates' value in the float32 checks
 GIB = 2 ** 30
+# the kernels a model run counts: the router's two, each once a MoE layer
+# a forward, and the decode attention, one call an attention layer a
+# cached one-token forward (a decode step; the prefill takes _sdpa)
+ROUTER, ATTN = ("radix_topk", "bitplane_pack"), "decode_attn"
+
+
+def but_attn(got: dict) -> dict:
+    """The launch counts ``got`` without the decode attention's calls."""
+    return {name: n for name, n in got.items() if name != ATTN}
 
 
 def cut(cfg, n_layers: int):
@@ -507,12 +523,13 @@ def cli(tag: str, arch: str, top_k: int, zero_counts, counts, *extra):
         zero_counts, counts)
 
 
-def router_parity(tag: str, cfg, params, moe_layers: int, zero_counts,
-                  counts) -> dict:
+def router_parity(tag: str, cfg, params, moe_layers: int, attn_layers: int,
+                  zero_counts, counts) -> dict:
     """A prefill and 8 teacher-forced decode steps under each router
     engine on one set of weights: expert indices and logits of ``radix``
-    and ``lax`` (torch) equal ``pallas`` (fused-topk) bit for bit.
-    Returns fused-topk's kernel launches."""
+    and ``lax`` (torch) equal ``pallas`` (fused-topk) bit for bit; each
+    engine's decode steps call the decode attention ``attn_layers`` times
+    a step.  Returns the fused-topk run's kernel launches."""
     import numpy as np
     import torch
     from repro_torch.launch import steps
@@ -555,15 +572,18 @@ def router_parity(tag: str, cfg, params, moe_layers: int, zero_counts,
             moe.route_topk = real_route
         torch.cuda.synchronize()
         got = counts()
+        expect(got[ATTN] == attn_layers * PARITY_DECODE_STEPS, f"{tag} "
+               f"parity {impl}: decode attention called {got[ATTN]} times, "
+               f"not {attn_layers} x {PARITY_DECODE_STEPS}")
         if impl == "pallas":
-            for name in ("radix_topk", "bitplane_pack"):
+            for name in ROUTER:
                 expect(got[name] == moe_layers * n_fwd, f"{tag} parity: "
                        f"{name} launched {got[name]}, not {moe_layers} x "
                        f"{n_fwd}")
             launched = got
         else:
-            expect(not any(got.values()), f"{tag} parity {impl}: launched "
-                   f"kernels {got}")
+            expect(not any(but_attn(got).values()), f"{tag} parity {impl}: "
+                   f"launched kernels {got}")
         expect(len(picks) == moe_layers * n_fwd,
                f"{tag} parity {impl}: {len(picks)} router calls")
         expect(all(bool(torch.isfinite(lg).all()) for lg in logits),
@@ -581,9 +601,10 @@ def router_parity(tag: str, cfg, params, moe_layers: int, zero_counts,
           f"{PARITY_DECODE_STEPS} teacher-forced decode steps: expert "
           "indices and logits of radix and lax (torch) == pallas "
           f"(fused-topk) bit for bit; fused-topk launched {moe_layers} of "
-          f"each kernel a forward; {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    return {name: launched[name] for name in ("radix_topk", "bitplane_pack")}
+          f"each kernel a forward, each engine called the decode attention "
+          f"{attn_layers} times a decode step; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: launched[name] for name in (*ROUTER, ATTN)}
 
 
 def decode_times(card: str, tag: str, cfg, params, counts,
@@ -797,7 +818,7 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
     qcfg = configs.get_config(QWEN_ARCH)
     expect(qcfg.n_layers == QWEN_LAYERS and qcfg.moe_capacity_factor == 1.25,
            "4q: qwen2-moe config")
-    launched = {"radix_topk": 0, "bitplane_pack": 0}
+    launched = dict.fromkeys((*ROUTER, ATTN), 0)
 
     def add(got):
         for name in launched:
@@ -811,14 +832,19 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
     res, got, secs = cli("4q", QWEN_ARCH, 32, zero_counts, counts,
                          "--router-impl", "pallas", "--prune", "0.3")
     forwards = SERVE_NEW
-    for name in launched:
+    for name in ROUTER:
         expect(got[name] == QWEN_LAYERS * forwards, f"4q CLI: {name} "
                f"launched {got[name]} times, not {QWEN_LAYERS} x {forwards}")
+    expect(got[ATTN] == QWEN_LAYERS * (forwards - 1), f"4q CLI: decode "
+           f"attention called {got[ATTN]} times, not {QWEN_LAYERS} x "
+           f"{forwards - 1}")
     add(got)
     print(f"4q serve --oneshot {QWEN_ARCH} --full-size --router-impl pallas "
           f"{' '.join(SERVE_ARGS)} --top-k 32 --prune 0.3: {secs:.1f} s in "
-          f"all (init, prune, prefill, 31 decode steps); launches {got} == "
-          f"{QWEN_LAYERS} x {forwards}; every logit finite, every sampled "
+          f"all (init, prune, prefill, 31 decode steps); launches {got}: "
+          f"{QWEN_LAYERS} x {forwards} of each router kernel, {QWEN_LAYERS} "
+          f"x {forwards - 1} decode attention calls; every logit finite, "
+          f"every sampled "
           f"token inside its step's top-32; CLI's prefill "
           f"{res['prefill_s'] * 1e3:.1f} ms, decode "
           f"{res['decode_tok_per_s']:.1f} tok/s (first calls)", flush=True)
@@ -829,7 +855,8 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
     # and the times on the same weights
     params = stacked.init_params(
         qcfg, torch.Generator(device=dev).manual_seed(1), dev)
-    add(router_parity("4q", qcfg, params, QWEN_LAYERS, zero_counts, counts))
+    add(router_parity("4q", qcfg, params, QWEN_LAYERS, QWEN_LAYERS,
+                      zero_counts, counts))
 
     # float32 logits from bfloat16 operands: the head through cuBLAS's
     # float32-output product, against the widened product
@@ -857,9 +884,12 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
     got = f32_decode_vs_forward("4q", QWEN_ARCH, F32_LAYERS, zero_counts,
                                 counts, router="pallas")
     n_fwd = 1 + F32_POSITIONS
-    for name in launched:
+    for name in ROUTER:
         expect(got[name] == F32_LAYERS * n_fwd, f"4q float32: {name} "
                f"launched {got[name]}, not {F32_LAYERS} x {n_fwd}")
+    expect(got[ATTN] == F32_LAYERS * F32_POSITIONS, f"4q float32: decode "
+           f"attention called {got[ATTN]} times, not {F32_LAYERS} x "
+           f"{F32_POSITIONS}")
     add(got)
 
     # ---- olmo-1b at full size: the non-parametric norm and the pruned
@@ -887,7 +917,12 @@ def phase_4q(card: str, zero_counts, counts) -> dict:
                              "--prune", "0.3")
     finally:
         insitu.prune_params = real_prune
-    expect(not any(got.values()), f"4q olmo-1b: launched kernels {got}")
+    olmo_layers = configs.get_config("olmo_1b").n_layers
+    expect(not any(but_attn(got).values())
+           and got[ATTN] == olmo_layers * (SERVE_NEW - 1),
+           f"4q olmo-1b: launched kernels {got}, not only {olmo_layers} x "
+           f"{SERVE_NEW - 1} decode attention calls")
+    add(got)
     print(f"4q serve --oneshot olmo_1b --full-size {' '.join(SERVE_ARGS)} "
           f"--top-k 50 --prune 0.3: {secs:.1f} s; prune masks on the card == "
           f"the host's on a copy bit for bit (weight sparsity "
@@ -985,7 +1020,8 @@ def phase_4r(card: str, zero_counts, counts) -> dict:
 
     params = stacked.init_params(
         cfg, torch.Generator(device=dev).manual_seed(1), dev)
-    add(router_parity("4r", cfg, params, moe_layers, zero_counts, counts))
+    add(router_parity("4r", cfg, params, moe_layers, 0, zero_counts,
+                      counts))
     out = {"deepseek_v2": decode_times(card, "4r", cfg, params, counts)}
     del params
     peak(f"{DSV2_ARCH} parity and times")
@@ -1005,7 +1041,8 @@ def phase_4r(card: str, zero_counts, counts) -> dict:
         print(f"4r {arch}: {sized(acfg)} before allocating", flush=True)
         res, got, secs = cli("4r", arch, 32, zero_counts, counts,
                              "--prune", "0.3")
-        expect(not any(got.values()), f"4r {arch}: launched kernels {got}")
+        expect(not any(but_attn(got).values()), f"4r {arch}: launched "
+               f"kernels {got}")
         print(f"4r serve --oneshot {arch} --full-size {' '.join(SERVE_ARGS)} "
               f"--top-k 32 --prune 0.3 ({stacked.segments(acfg)}): "
               f"{secs:.1f} s; every logit finite, every sampled token inside "
@@ -1086,7 +1123,8 @@ def phase_4r(card: str, zero_counts, counts) -> dict:
         lambda: serve.serve(lcfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
                             top_k=32, prune_rate=0.3),
         zero_counts, counts)
-    expect(not any(got.values()), f"4r {LLAMA_ARCH}: launched kernels {got}")
+    expect(not any(but_attn(got).values()), f"4r {LLAMA_ARCH}: launched "
+           f"kernels {got}")
     print(f"4r serve.serve({LLAMA_ARCH} at {LLAMA_LAYERS} layers, gates 0 as "
           f"initialised, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
           f"{SERVE_NEW} new, top-k 32, prune 0.3): {secs:.1f} s in all; every "
@@ -1582,8 +1620,8 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
     from repro_torch.optim import adamw
 
     dev = torch.device("cuda", 0)
-    router = ("radix_topk", "bitplane_pack")
-    launched = dict.fromkeys(router, 0)
+    router = ROUTER
+    launched = dict.fromkeys((*router, ATTN), 0)
     cfg = dataclasses.replace(cut(configs.get_config(QWEN_ARCH), TRAIN_LAYERS),
                               router_impl="pallas")
     tshape = ShapeConfig("4t", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -1694,8 +1732,11 @@ def phase_4t(card: str, zero_counts, counts, losses_4s) -> dict:
             expect(all(n[k] == TRAIN_LAYERS * (1 + SHARD_DECODE)
                        for k in router), f"4t {arm} serving: router "
                    f"launches {n}")
+            expect(n[ATTN] == TRAIN_LAYERS * SHARD_DECODE, f"4t {arm} "
+                   f"serving: decode attention called {n[ATTN]} times, not "
+                   f"{TRAIN_LAYERS} x {SHARD_DECODE}")
             if arm == "mesh":
-                for k in router:
+                for k in launched:
                     launched[k] += n[k]
             arms[arm] = {"logits": logits, "toks": toks,
                          "prefill_ms": prefill_ms, "decode_ms": decode_ms,
@@ -1818,18 +1859,24 @@ def phase_4u(card: str, zero_counts, counts) -> dict:
     from repro_torch.optim import adamw
 
     dev = torch.device("cuda")
-    router = ("radix_topk", "bitplane_pack")
-    launched = dict.fromkeys(router, 0)
+    router = ROUTER
+    launched = dict.fromkeys((*router, ATTN), 0)
     out = {}
 
-    def run_counted(tag, n_calls, layers, fn):
+    def run_counted(tag, n_calls, layers, fn, decoding=False):
+        """``fn()``, whose ``n_calls`` forwards of ``layers`` MoE layers
+        (decode steps where ``decoding``: as many decode attention calls)
+        launch exactly these kernels."""
         zero_counts()
         res = fn()
         torch.cuda.synchronize()
         got = counts()
         expect(all(got[k] == layers * n_calls for k in router), f"{tag}: "
                f"router launches {got}, not {layers} x {n_calls}")
-        for k in router:
+        want = layers * n_calls if decoding else 0
+        expect(got[ATTN] == want, f"{tag}: decode attention called "
+               f"{got[ATTN]} times, not {want}")
+        for k in launched:
             launched[k] += got[k]
         return res
 
@@ -1905,11 +1952,13 @@ def phase_4u(card: str, zero_counts, counts) -> dict:
             secs.append(time.perf_counter() - t0)
         return secs
 
-    secs = run_counted("4u.b timed decode steps", 9, QWEN_LAYERS, decoded)
+    secs = run_counted("4u.b timed decode steps", 9, QWEN_LAYERS, decoded,
+                       decoding=True)
     dec_ms = statistics.median(secs[1:]) * 1e3
     dec_peak = torch.cuda.max_memory_allocated() / GIB
     c = run_counted("4u.b counted decode step", 1, QWEN_LAYERS,
-                    lambda: rl.count(decode, params, tok, pos + 9, caches))
+                    lambda: rl.count(decode, params, tok, pos + 9, caches),
+                    decoding=True)
     c.result = None
     del params, caches
     torch.cuda.empty_cache()
@@ -2054,9 +2103,96 @@ def phase_4v(card: str, zero_counts, counts) -> dict:
     for target in trace_gate.KERNEL_MODULES:
         expect(any(r.target == target and r.how == "card" for r in results),
                f"4v.c {target}: no case ran on the card")
-    for name, n in launched.items():
+    for name, n in but_attn(launched).items():
         expect(n > 0, f"4v.c the gate did not launch {name}")
     return {"launches": launched}
+
+
+# phase 4w: the decode-attention kernel at qwen2-moe's decode cell (64 rows
+# over a 2560-slot cache, 16 heads of 128, each row at 2048 + 32..512) and
+# at a GQA-8 head-128 shape (llama-3.2-vision's group), held to its plain
+# version and timed beside its bytes bound
+DECODE_ATTN_SHAPES = (("cell", 64, 2560, 16, 1, 128),
+                      ("gqa8", 64, 2560, 8, 8, 128))
+DECODE_ATTN_PROMPT, DECODE_ATTN_MIN_ROOF = 2048, 0.60
+
+
+def phase_4w(card: str) -> dict:
+    """The decode-attention kernel (``kernels/decode_attn.py``) against its
+    plain version (within one output ulp at each (row, head)'s largest
+    value, ``tests/test_torch_kernels_cuda.py``'s bound), timed by CUDA
+    events beside its bytes bound (the filled k and v positions, q and
+    the output, each once), the plain version and, as ``library_ms`` only,
+    ``torch.nn.functional.scaled_dot_product_attention`` on the same
+    inputs; at the cell's shape it must reach ``DECODE_ATTN_MIN_ROOF`` of
+    the bound.  Returns the kernel's JSON entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    dev = torch.device("cuda")
+
+    def ev_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    entry, worst = None, 0.0
+    for tag, B, S, KV, group, hd in DECODE_ATTN_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((B, 1, KV * group, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        pos = DECODE_ATTN_PROMPT - 1 + torch.randint(
+            32, 513, (B,), generator=gen, device=dev)
+        got = decode_attn.decode_attention(q, k, v, pos)
+        want = decode_attn.decode_attention_ref(q, k, v, pos)
+        top = want.float().abs().amax(-1, keepdim=True)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        over = ((got.float() - want.float()).abs() / ulp).max().item()
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        expect(over <= 1, f"4w decode_attn {tag}: the kernel is {over} "
+               "ulps of its (row, head)'s largest output from the plain "
+               "version")
+        filled = int((pos + 1).clamp(max=S).sum())
+        nbytes = 2 * (2 * filled * KV * hd + 2 * q.numel())
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = ev_ms(lambda: decode_attn.decode_attention(q, k, v, pos), 20)
+        plain = ev_ms(lambda: decode_attn.decode_attention_ref(
+            q, k, v, pos), 3)
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        lib = ev_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=group > 1), 20)
+        print(f"[{card}] 4w decode_attn {tag}: B {B}, S {S}, {KV} KV heads "
+              f"x {group} of {hd}, bf16, {filled} filled positions: "
+              f"{ms:.4f} ms, bytes bound {bound:.4f} ms ({nbytes / 1e9:.3f} "
+              f"GB at 3.35 TB/s, {100 * bound / ms:.1f} % of it); plain "
+              f"version {plain:.3f} ms; library_ms (scaled_dot_product_"
+              f"attention, not called by the port) {lib:.4f}; max "
+              f"{over:.3f} ulp of the (row, head)'s largest output",
+              flush=True)
+        if tag == "cell":
+            expect(bound / ms >= DECODE_ATTN_MIN_ROOF, f"4w decode_attn "
+                   f"cell: {bound / ms:.3f} of the bytes bound, under "
+                   f"{DECODE_ATTN_MIN_ROOF}")
+            entry = {"name": "decode_attn", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+                     "replaces": None, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": lib}
+        del q, k, v
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = worst
+    return entry
 
 
 def main() -> int:
@@ -2071,8 +2207,8 @@ def main() -> int:
     from repro_torch.core import radix_select as rs
     from repro_torch.core import ref_tns
     from repro_torch.kernels import (_build, backend, bitplane_pack,
-                                     digit_read, fused_tns, masked_matmul,
-                                     ops, radix_topk)
+                                     decode_attn, digit_read, fused_tns,
+                                     masked_matmul, ops, radix_topk)
     from repro_torch.kernels.ref import (min_search_ref, pack_keys_ref,
                                          pruned_matmul_ref, topk_keys_ref,
                                          unpack_keys_f32_ref)
@@ -2084,7 +2220,7 @@ def main() -> int:
     dev = torch.device("cuda")
     mods = {"fused_tns": fused_tns, "digit_read": digit_read,
             "bitplane_pack": bitplane_pack, "radix_topk": radix_topk,
-            "masked_matmul": masked_matmul}
+            "masked_matmul": masked_matmul, ATTN: decode_attn}
     err = {name: 0 for name in mods}
 
     def zero_counts():
@@ -3132,6 +3268,16 @@ def main() -> int:
     print(f"phase 4v: {time.perf_counter() - t0:.1f} s; launches of the "
           f"gate {gate_v['launches']}", flush=True)
 
+    # ---- 4w. the decode-attention kernel at the decode cell's shape and a
+    # GQA-8 one, against its plain version, beside its bound
+    t0 = time.perf_counter()
+    attn_w = phase_4w(card)
+    # the main path's calls, counted and held to one an attention layer a
+    # decode step in 4q, 4t and 4u (4w's own timing loops are not counted)
+    attn_w["launches"] = slice_launches[ATTN]
+    print(f"phase 4w: {time.perf_counter() - t0:.1f} s; decode attention "
+          f"calls of the counted runs {slice_launches[ATTN]}", flush=True)
+
     # ---- 5. times
     B, W, N = planes.shape
     fused_ms = cuda_ms(lambda: fused_tns.fused_tns_rank(
@@ -3470,6 +3616,7 @@ def main() -> int:
          "max_abs_err": float(err["masked_matmul"]), "ms": mm_ms,
          "plain_ms": mm_plain_ms, "bound_ms": mb[0], "bound_by": mb[1],
          "library_ms": mm_lib_ms},
+        attn_w,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,12 @@ not aten ops, so no dispatch mode sees them.  On the card the router's
 key pack and top-k launches are left out of FLOPs and bytes: 11.3 MB a
 call at (16384, 160) float32 (``PERF.md`` kernel table, row 3), against
 the GBs of a model step.  Their FLOPs are integer work no formula counts.
+A decode step's attention over the cache (``kernels/decode_attn.py``, a
+cached one-token call on the card) is left out of both too: its score and
+value products (4·B·H·S·hd FLOPs a layer) and its reads of the filled k
+and v cache, the largest bytes of a long-context decode step.  Off the
+card (the dry run's fake tensors) the call takes ``_sdpa``'s aten ops and
+is counted.
 
 ``hlo_byte_profile`` becomes :func:`op_byte_profile` (aten ops by output
 bytes).  ``parse_collectives`` parses HLO text and has no counterpart:

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import decode_attn
 from repro_torch.models import shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.runtime import spans
@@ -429,8 +430,11 @@ def apply_attn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     """Self-attention over x (B, T, d) at ``positions`` (B, T).  With a
     cache: this step's k/v are written into it in place at the rows'
     positions, and the queries attend over the cache (the returned cache
-    is the same dict).  Under a mesh: this rank's heads, ``wo``'s rows
-    summed over the model axis."""
+    is the same dict); one query token (T = 1, a decode step) attends
+    through :func:`repro_torch.kernels.decode_attn.decode_attention`, which
+    on the card reads the cache in its stored layout, and counts
+    ``attn.decode_rows`` (B) and ``attn.cache_slots`` (B·S).  Under a mesh:
+    this rank's heads, ``wo``'s rows summed over the model axis."""
     with spans.span("attn", x):
         B, T, d = x.shape
         H, hd = cfg.n_heads, cfg.hd
@@ -446,13 +450,17 @@ def apply_attn(params: Dict, x: torch.Tensor, cfg: ArchConfig,
             idx = positions[:, 0]
             k = _cached(cache["k"], k, idx)
             v = _cached(cache["v"], v, idx)
-            kv_len = idx + T
-        else:
-            kv_len = None
         if lay != 2 and shard.model_size() > 1:
             k, v = _own_kv(k, heads, H), _own_kv(v, heads, H)
-        out = _sdpa(q, k, v, causal=True, q_pos=positions, kv_len=kv_len,
-                    impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+        if cache is not None and T == 1:
+            # one query token reads the cache where it lies
+            spans.count("attn.decode_rows", B)
+            spans.count("attn.cache_slots", B * k.shape[1])
+            out = decode_attn.decode_attention(q, k, v, idx)
+        else:
+            out = _sdpa(q, k, v, causal=True, q_pos=positions,
+                        kv_len=None if cache is None else idx + T,
+                        impl=cfg.attn_impl, chunk=cfg.attn_chunk)
         wo = shard.take(params["wo"], -2, H * hd,
                         shard.spans(shard.split(H, shard.model_size()), hd))
         out = out.reshape(B, T, (heads[1] - heads[0]) * hd)

@@ -462,13 +462,22 @@ def test_cuda_parser_reads_the_ports_kernels():
     assert {"fused_tns_kernel", "dr_warp_kernel", "dr_block_kernel",
             "pack_kernel", "topk_warp_kernel", "topk_select_kernel",
             "topk_rounds_kernel", "mm_bf16_kernel", "mm_f32_kernel",
-            "mm_wgmma_kernel"} == set(table)
+            "mm_wgmma_kernel", "decode_scores_kernel",
+            "decode_values_kernel", "decode_combine_kernel"} == set(table)
     # bf16 As[128 * 40] + Bs[32 * 136] + float stage[8][256]
     assert table["mm_bf16_kernel"]["static_smem"] == 10240 + 8704 + 8192
     assert table["mm_f32_kernel"]["static_smem"] == 16 * 68 * 4 + 16 * 64 * 4
     assert table["topk_rounds_kernel"]["static_smem"] is None   # NW
     assert table["fused_tns_kernel"]["dynamic_smem"]
     assert table["pack_kernel"]["static_smem"] == 0
+    # float wt[GM * 256] + red[4 * GM]: by the group's registers GM
+    assert table["decode_values_kernel"]["static_smem"] is None
+    assert table["decode_scores_kernel"]["static_smem"] == 0
+    cu = cuda_lint.CudaFile(CSRC / "decode_attn.cu",
+                            (CSRC / "decode_attn.cu").read_text())
+    values = next(k for k in cu.kernels if k.name == "decode_values_kernel")
+    assert [cu.static_smem(values, {"DT": 1, "GM": gm})
+            for gm in (1, 8)] == [1040, 8320]
     cu = cuda_lint.CudaFile(CSRC / "masked_matmul.cu",
                             (CSRC / "masked_matmul.cu").read_text())
     assert cu.consts["kGemmSmem"] == 230464 <= cuda_lint.OPTIN_SMEM_LIMIT

@@ -1,5 +1,6 @@
-"""The fused TNS, digit-read, key-pack, radix top-k and pruned-matmul CUDA
-kernels against their plain PyTorch versions on the card, and the
+"""The fused TNS, digit-read, key-pack, radix top-k, pruned-matmul and
+decode-attention CUDA kernels against their plain PyTorch versions on the
+card, and the
 cycle-faithful machines (plain torch) on the card against their runs on
 the host.  The file imports no JAX, so it runs on a machine with a card and
 no JAX:
@@ -15,8 +16,9 @@ from repro_torch import sort as tsort
 from repro_torch.core import bitplane as bp
 from repro_torch.core import catns, tns
 from repro_torch.core import radix_select as rs
-from repro_torch.kernels import (bitplane_pack, digit_read, fused_tns,
-                                 masked_matmul, ops, radix_topk, ref)
+from repro_torch.kernels import (bitplane_pack, decode_attn, digit_read,
+                                 fused_tns, masked_matmul, ops, radix_topk,
+                                 ref)
 from repro_torch.runtime import faults
 
 import _sort_assembly as assembly
@@ -704,6 +706,169 @@ def test_moe_train_step_on_card_matches_host(cuda_device, remat):
         assert abs(gd - gh) <= 1e-4 * abs(gh)
 
 
+def _decode_inputs(dev, B, S, KV, group, hd, dtype, seed=0, pos=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, 1, KV * group, hd), (B, S, KV, hd),
+                             (B, S, KV, hd)))
+    if pos is None:      # each row its own position, the first 0, the last
+        pos = torch.randint(0, S, (B,), generator=g, device=dev)   # S - 1
+        pos[0], pos[-1] = 0, S - 1
+    return q, k, v, pos
+
+
+def _decode_bound(want, dtype):
+    """The kernel's allowance against the plain version, by (row, head):
+    both sum in float32 in another order (exp, sum and product orders; a
+    probability that rounds the other way to the cache's type shifts the
+    sum by ~2^-8 of one ~1/S weight), far below an output ulp; the one
+    rounding to the output type can then put the two one ulp apart.  An
+    entry far below its row's largest carries the sum's cancellation, so
+    the ulp is taken at the (row, head)'s largest |output|.  float32
+    keeps the orders' difference unrounded: 1e-5 of that largest."""
+    top = want.float().abs().amax(-1, keepdim=True)
+    if dtype == torch.float32:
+        return 1e-5 * top
+    bits = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    return torch.exp2(torch.floor(torch.log2(top.clamp(min=1e-30))) - bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,KV,group,hd,dtype,form", [
+    (64, 2560, 16, 1, 128, torch.bfloat16, "whole"),  # qwen2-moe decode cell
+    (64, 700, 16, 1, 64, torch.bfloat16, "whole"),
+    (64, 700, 16, 1, 80, torch.bfloat16, "whole"),
+    (32, 700, 16, 1, 256, torch.bfloat16, "split"),
+    (64, 700, 8, 5, 128, torch.bfloat16, "whole"),    # qwen3-14b's group
+    (64, 700, 8, 8, 128, torch.bfloat16, "whole"),    # llama-3.2-vision's
+    (16, 900, 8, 8, 128, torch.float16, "whole"),
+    (8, 600, 4, 4, 16, torch.float32, "split"),
+    (2, 5000, 1, 8, 128, torch.bfloat16, "split"),
+    (3, 4100, 2, 1, 128, torch.bfloat16, "split"),
+])
+def test_decode_attn_kernel_equals_plain_version_on_card(
+        cuda_device, B, S, KV, group, hd, dtype, form):
+    q, k, v, pos = _decode_inputs(cuda_device, B, S, KV, group, hd, dtype)
+    split = decode_attn.split_for(B * KV, group, S)[0] > 1
+    assert split == (form == "split")
+    before = dict(decode_attn.FORM_LAUNCHES)
+    got = decode_attn.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_attn.FORM_LAUNCHES[form] == before[form] + 1
+    want = decode_attn.decode_attention_ref(q, k, v, pos)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    over = ((got.float() - want.float()).abs()
+            - _decode_bound(want, dtype)).max().item()
+    assert over <= 0, over
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,KV,group", [(64, 2560, 16, 1), (2, 3000, 2, 8)])
+def test_decode_attn_never_reads_past_a_rows_position_on_card(
+        cuda_device, B, S, KV, group):
+    # rewound rows: NaN past each row's position gives the output of zeros
+    # there, bit for bit (a row at -1 sees nothing and reads all S, so
+    # every row here has a position)
+    q, k, v, pos = _decode_inputs(cuda_device, B, S, KV, group, 128,
+                                  torch.bfloat16, seed=1)
+    past = (torch.arange(S, device=cuda_device)[None, :] > pos[:, None])
+    past = past[:, :, None, None]
+    nan = [t.masked_fill(past, float("nan")) for t in (k, v)]
+    zero = [t.masked_fill(past, 0) for t in (k, v)]
+    got = decode_attn.decode_attention(q, *nan, pos)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, decode_attn.decode_attention(q, *zero, pos))
+
+
+@pytest.mark.cuda
+def test_decode_attn_at_the_edges_of_a_row_on_card(cuda_device):
+    # int64 positions past the cache's end (all of it), at -1 (nothing
+    # filled: every position alike) and strided caches (a layer of a
+    # stacked cache, a head-sliced view)
+    q, k, v, _ = _decode_inputs(cuda_device, 4, 33, 2, 5, 80,
+                                torch.bfloat16, seed=2)
+    pos = torch.tensor([-1, 0, 32, 40], device=cuda_device)
+    got = decode_attn.decode_attention(q, k, v, pos)
+    want = decode_attn.decode_attention_ref(q, k, v, pos)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _decode_bound(want, torch.bfloat16)).all())
+    stack = torch.randn((3, 4, 33, 4, 80), device=cuda_device).to(
+        torch.bfloat16)
+    ks, vs = stack[1, :, :, 1:3], stack[2, :, :, :2]
+    got = decode_attn.decode_attention(q, ks, vs, pos)
+    want = decode_attn.decode_attention_ref(q, ks.contiguous(),
+                                            vs.contiguous(), pos)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _decode_bound(want, torch.bfloat16)).all())
+
+
+@pytest.mark.cuda
+def test_decode_attn_replays_in_a_cuda_graph_on_card(cuda_device):
+    q, k, v, pos = _decode_inputs(cuda_device, 8, 600, 4, 2, 128,
+                                  torch.bfloat16, seed=3)
+    eager = decode_attn.decode_attention(q, k, v, pos)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        decode_attn.decode_attention(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attn.decode_attention(q, k, v, pos)
+    pos += 7
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, decode_attn.decode_attention(q, k, v, pos))
+    assert not torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_decode_attn_counters_through_apply_attn_on_card(cuda_device):
+    # a cached one-token call counts B rows and B x S cache slots and
+    # launches the kernel once; a prefill through the cache neither
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import spans
+    cfg = dataclasses.replace(configs.get_config("qwen3_14b").reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    p = L.init_attn(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                    cuda_device)
+    B, S = 3, 40
+    cache = L.init_attn_cache(cfg, B, S, cuda_device)
+    x = torch.randn((B, 5, cfg.d_model), device=cuda_device).to(
+        torch.bfloat16)
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            launches = decode_attn.LAUNCHES
+            L.apply_attn(p, x, cfg, torch.arange(5, device=cuda_device)
+                         .expand(B, 5), cache)
+            assert decode_attn.LAUNCHES == launches
+            assert spans.report()["counters"] == {}
+            for i in range(2):
+                L.apply_attn(p, x[:, :1], cfg, torch.full(
+                    (B, 1), 5 + i, device=cuda_device), cache)
+            assert decode_attn.LAUNCHES == launches + 2
+        assert spans.report()["counters"] == {
+            "attn.decode_rows": 2 * B, "attn.cache_slots": 2 * B * S}
+    finally:
+        spans.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,group,dtype,err", [
+    (20, 1, torch.bfloat16, ValueError), (264, 1, torch.bfloat16, ValueError),
+    (128, 16, torch.bfloat16, ValueError), (64, 1, torch.float64, TypeError)])
+def test_decode_attn_refuses_on_card(cuda_device, hd, group, dtype, err):
+    q, k, v, pos = _decode_inputs(cuda_device, 2, 16, 1, group, hd, dtype)
+    with pytest.raises(err):
+        decode_attn.decode_attention(q, k, v, pos)
+
+
 @pytest.mark.cuda
 def test_trace_gate_on_card(cuda_device):
     # every case on CUDA tensors: its shapes and dtypes those of the CPU
@@ -720,7 +885,8 @@ def test_trace_gate_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["bitplane_pack", "digit_read", "fused_tns",
+@pytest.mark.parametrize("name", ["bitplane_pack", "decode_attn",
+                                  "digit_read", "fused_tns",
                                   "masked_matmul", "radix_topk"])
 def test_cuda_lint_static_smem_equals_ptxas_on_card(cuda_device, name):
     from repro_torch.analysis import cuda_lint

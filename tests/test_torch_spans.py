@@ -167,12 +167,14 @@ def test_moe_decode_step_spans_and_counters(factor):
     for e in ev:
         if e.name.startswith("repro_torch.moe."):
             assert _parent(e) == "repro_torch.moe"
-    # a decode step routes B tokens k ways into (E, B, C) slots a layer
+    # a decode step routes B tokens k ways into (E, B, C) slots a layer,
+    # and attends B rows over the 8 slots of the cache a layer
     C = moe._capacity(1, k, E, factor)
     assert C == 8
     assert spans.report()["counters"] == {
         "moe.slots": L * E * B * C, "moe.assignments": L * B * k,
-        "moe.assignments_held": L * B * k}
+        "moe.assignments_held": L * B * k, "attn.decode_rows": L * B,
+        "attn.cache_slots": L * B * 8}
 
 
 def test_mla_spans_and_cache_counter():
